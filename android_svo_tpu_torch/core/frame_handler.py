@@ -1,29 +1,30 @@
 """Frame handler: the host-side stage machine FIRST -> SECOND -> DEFAULT,
-with RELOCALIZING on tracking failure — port of
+with RELOCALIZING on tracking failure, and local bundle adjustment after
+every `loba_every_n_kfs`-th keyframe — port of
 `android_svo_tpu/core/frame_handler.py`.
-
-Local bundle adjustment (`loba_n_iter > 0`) is not ported yet: the handler
-raises at construction when it is asked for.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from android_svo_tpu_torch import resolve_device
-from android_svo_tpu_torch.config import SVOConfig, not_ported
+from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import pipeline, state as st
 from android_svo_tpu_torch.core.initialization import (bootstrap_pair,
                                                        ransac_draws)
 from android_svo_tpu_torch.core.reprojector import _kf_cam_pos
-from android_svo_tpu_torch.core.scatter import set_rows
+from android_svo_tpu_torch.core.scatter import compact, set_rows
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import detect, matcher
 from android_svo_tpu_torch.ops.detect import cell_index
 from android_svo_tpu_torch.ops.pyramid import build_pyramid, stack_from_pyramid
+from android_svo_tpu_torch.parallel.ba import local_ba, select_core_keyframes
 
 STAGE_PAUSED = 0
 STAGE_FIRST_FRAME = 1
@@ -173,18 +174,20 @@ class FrameHandler:
 
     Runs on CUDA unless `device="cpu"` is given; RANSAC draws come from a
     CPU `torch.Generator` seeded with `seed`, so a run on either device
-    samples the same minimal sets."""
+    samples the same minimal sets.  `perf_mon` (a
+    `utils.profiling.PerformanceMonitor`, or None) times the stages and
+    writes one trace record per frame.  `n_local_ba` counts the local BA
+    runs dispatched since the last reset."""
 
     def __init__(self, cam, cfg: SVOConfig = SVOConfig(),
                  init_T_cw: Optional[SE3] = None, seed: int = 0,
-                 device=None):
-        if cfg.loba_n_iter > 0:
-            raise not_ported("loba_n_iter", cfg.loba_n_iter)
+                 perf_mon=None, device=None):
         self.device = resolve_device(device)
         self.cam = cam
         self.cfg = cfg
         self.dims = st.arena_dims(cfg, cam.width, cam.height)
         self.seed = seed
+        self.perf_mon = perf_mon
         self._track = pipeline.make_track_frame(cfg, cam, self.dims)
         self.init_T_cw = (init_T_cw if init_T_cw is not None
                           else SE3.identity(device=self.device))
@@ -197,6 +200,8 @@ class FrameHandler:
         self._gen = torch.Generator().manual_seed(self.seed)
         self._first = None
         self._n_fail = 0
+        self._n_kf_since_ba = 0
+        self.n_local_ba = 0
 
     def _pyr_det(self, img):
         pyr = build_pyramid(img, self.cfg.total_pyr_levels)
@@ -205,6 +210,26 @@ class FrameHandler:
         return pyr, det
 
     def add_image(self, img, timestamp: float = 0.0) -> TrackResult:
+        if self.perf_mon is None:
+            return self._add_image(img)
+        with self.perf_mon.timer("tot_time"):
+            res = self._add_image(img)
+        self.perf_mon.log("frame_id", int(self.vo.frame_id))
+        self.perf_mon.log("stage", self.stage)
+        self.perf_mon.log("result", res.result)
+        self.perf_mon.log("n_matches", res.n_matches)
+        self.perf_mon.log("n_edges", res.n_edges)
+        self.perf_mon.log("n_seeds", res.n_seeds)
+        self.perf_mon.log("n_points", res.n_points)
+        self.perf_mon.write_frame()
+        return res
+
+    def _timer(self, name):
+        if self.perf_mon is None:
+            return contextlib.nullcontext()
+        return self.perf_mon.timer(name)
+
+    def _add_image(self, img) -> TrackResult:
         img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
         if self.stage == STAGE_FIRST_FRAME:
             return self._process_first(img)
@@ -216,8 +241,9 @@ class FrameHandler:
                            result=pipeline.RES_NO_KEYFRAME)
 
     def _process_first(self, img) -> TrackResult:
-        pyr, det = self._pyr_det(img)
-        n = int(det["valid"].sum())
+        with self._timer("pyramid_creation"):
+            pyr, det = self._pyr_det(img)
+            n = int(det["valid"].sum())
         if n >= self.cfg.init_min_kps:
             self._first = (pyr, det)
             self.stage = STAGE_SECOND_FRAME
@@ -258,13 +284,25 @@ class FrameHandler:
         was_reloc = self.stage == STAGE_RELOCALIZING
         if was_reloc:
             self._prepare_relocalization()
-        self.vo, out = self._track(self.vo, img)
-        host = {k: int(out[k]) for k in (
-            "result", "n_tracked", "n_matches", "n_edges", "n_seeds",
-            "n_points")}
+        with self._timer("fused_track_dispatch"):
+            self.vo, out = self._track(self.vo, img)
+            host = {k: int(out[k]) for k in (
+                "result", "n_tracked", "n_matches", "n_edges", "n_seeds",
+                "n_points")}
         result = host["result"]
         if was_reloc and host["n_tracked"] <= self.cfg.reloc_min_tracked:
+            # relocalization accept gate: alignment against the closest
+            # keyframe must track enough features before tracking resumes
             result = pipeline.RES_FAILURE
+        if result == pipeline.RES_IS_KEYFRAME and self.cfg.loba_n_iter > 0:
+            self._n_kf_since_ba += 1
+            if self._n_kf_since_ba >= self.cfg.loba_every_n_kfs:
+                self._n_kf_since_ba = 0
+                # dispatched with no host read: the next tracking step
+                # consumes the refined state in stream order
+                with self._timer("local_ba"):
+                    self.vo = self._run_local_ba(self.vo)
+                self.n_local_ba += 1
         if result == pipeline.RES_FAILURE:
             self._n_fail += 1
             if was_reloc or self._n_fail >= 2:
@@ -278,6 +316,62 @@ class FrameHandler:
             n_seeds=host["n_seeds"], n_points=host["n_points"],
             t_wc=out["t_wc"])
 
+    def _run_local_ba(self, vo: st.VOState) -> st.VOState:
+        """Local BA over the core keyframe window after a keyframe insertion.
+
+        The landmark arena is compacted to `loba_point_budget` live
+        landmarks (seen by at least two keyframes) before the Schur
+        einsums; a frame-rotating offset round-robins which ones are
+        refined when more are live than the budget.  The newest keyframe is
+        the current frame, so its refined pose is propagated into `last`.
+        No value is read back to the host."""
+        cfg = self.cfg
+        n_core = min(cfg.loba_num_kfs + 1, cfg.max_n_kfs)
+        core, fixed = select_core_keyframes(
+            vo.kfs.q_kw, vo.kfs.t_kw, vo.kfs.valid, vo.last.T_fw, n_core)
+        pts = vo.points
+        pvalid = pts.valid & (pts.obs_count >= 2)
+        P = pvalid.shape[0]
+        offset = (vo.frame_id.to(torch.int64) * 263) % P
+        ar = torch.arange(P, device=pvalid.device)
+        idx = compact(pvalid[(ar + offset) % P],
+                      min(cfg.loba_point_budget, P))
+        sel = idx >= 0
+        idxc = (torch.clamp(idx, min=0) + offset) % P
+        q2, t2, pos2_b, _ = local_ba(
+            pts.pos[idxc], sel, pts.obs_kf[idxc], pts.obs_f[idxc],
+            vo.kfs.q_kw, vo.kfs.t_kw, core, fixed,
+            self.cam.errorMultiplier2(), cfg)
+        pos2 = set_rows(pts.pos, torch.where(sel, idxc,
+                                             torch.full_like(idxc, P)),
+                        pos2_b)
+        kfs = vo.kfs.replace(q_kw=q2, t_kw=t2)
+        newest = torch.argmax(torch.where(
+            kfs.valid, kfs.frame_id, torch.full_like(kfs.frame_id, -1)))
+        is_cur = kfs.frame_id[newest] == (vo.frame_id - 1)
+        last = vo.last.replace(
+            q_fw=torch.where(is_cur, q2[newest], vo.last.q_fw),
+            t_fw=torch.where(is_cur, t2[newest], vo.last.t_fw))
+        return vo.replace(kfs=kfs, points=pts.replace(pos=pos2), last=last)
+
+    def relocalize_frame_at_pose(self, kf_frame_id: int, T_cw_guess: SE3,
+                                 img, timestamp: float = 0.0) -> TrackResult:
+        """External relocalization hook: a place-recognition module names a
+        keyframe (by frame id) and a pose guess; the tracker is seated on
+        that keyframe (keeping its stored pose) and tracks `img` against it.
+        The guess is only the pose reported when the keyframe is unknown."""
+        vo = self.vo
+        ids = vo.kfs.frame_id.cpu().numpy()
+        valid = vo.kfs.valid.cpu().numpy()
+        match = np.nonzero(valid & (ids == kf_frame_id))[0]
+        if match.size == 0:
+            return TrackResult(T_cw=T_cw_guess, stage=self.stage,
+                               result=pipeline.RES_FAILURE)
+        self._seat_on_keyframe(int(match[0]))
+        self.stage = STAGE_DEFAULT_FRAME
+        return self._process_default(
+            torch.as_tensor(img, dtype=torch.float32).to(self.device))
+
     def _prepare_relocalization(self):
         """Seat the last frame on the keyframe closest to the lost pose."""
         vo = self.vo
@@ -286,9 +380,13 @@ class FrameHandler:
                                  dim=-1)
         dist = torch.where(vo.kfs.valid, dist,
                            torch.full_like(dist, float("inf")))
-        k = int(torch.argmin(dist))
-        kfs = vo.kfs
-        self.vo = vo.replace(last=st.FrameState(
+        self._seat_on_keyframe(int(torch.argmin(dist)))
+
+    def _seat_on_keyframe(self, k: int):
+        """Make keyframe slot k (its image, stored pose and features) the
+        last frame the next tracking step aligns against."""
+        kfs = self.vo.kfs
+        self.vo = self.vo.replace(last=st.FrameState(
             stack=kfs.stack[k], q_fw=kfs.q_kw[k], t_fw=kfs.t_kw[k],
             ftr_px=kfs.ftr_px[k], ftr_f=kfs.ftr_f[k],
             ftr_level=kfs.ftr_level[k], ftr_point=kfs.ftr_point[k],

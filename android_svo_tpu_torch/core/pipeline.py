@@ -481,3 +481,26 @@ def make_track_frame(cfg: SVOConfig, cam, dims):
         return vo, out
 
     return track_frame
+
+
+def make_track_scan(cfg: SVOConfig, cam, dims):
+    """Build `track_scan(vo, imgs) -> (vo, outs)`: `track_frame` over a
+    stacked (N, H, W) batch (or any sequence of frames), with the per-frame
+    `t_wc`, `result`, `n_matches` and `n_edges` stacked along a leading
+    axis.  The loop reads nothing back to the host between frames (the
+    step's own keyframe decision is its one read).  It covers the DEFAULT
+    steady state, keyframe insertion included; the stage machine keeps
+    bootstrap and relocalization, and local BA is dispatched between
+    scans."""
+    track = make_track_frame(cfg, cam, dims)
+    keys = ("t_wc", "result", "n_matches", "n_edges")
+
+    def track_scan(vo: st.VOState, imgs):
+        outs = {k: [] for k in keys}
+        for img in imgs:
+            vo, out = track(vo, img)
+            for k in keys:
+                outs[k].append(out[k])
+        return vo, {k: torch.stack(v) for k, v in outs.items()}
+
+    return track_scan

@@ -82,3 +82,32 @@ def inv2x2(A: torch.Tensor, det=None) -> torch.Tensor:
     row0 = torch.stack([A[..., 1, 1] * inv_det, -A[..., 0, 1] * inv_det], -1)
     row1 = torch.stack([-A[..., 1, 0] * inv_det, A[..., 0, 0] * inv_det], -1)
     return torch.stack([row0, row1], dim=-2)
+
+
+def solve_spd_loop(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x with H x = g for one larger SPD system (d up to ~100; local BA's
+    (6 NC)^2 reduced camera system): Jacobi preconditioning, a right-looking
+    Cholesky and two substitutions, one Python loop each over the columns
+    (port of `solve_spd_loop`, `android_svo_tpu/geometry/linsolve.py:120`).
+
+    The preconditioning factors D^-1/2 H D^-1/2 so every pivot is O(1) even
+    when one camera block carries huge J^T J terms.  Each step is the
+    reference's masked column update restricted to the rows it changes; no
+    value is read back to the host."""
+    d = H.shape[-1]
+    diag = torch.diagonal(H)
+    dinv = 1.0 / torch.sqrt(torch.clamp(torch.abs(diag), min=_PIVOT_FLOOR))
+    L = H * dinv[:, None] * dinv[None, :]
+    g = g * dinv
+    for j in range(d):
+        pivot = torch.sqrt(torch.clamp(L[j, j], min=_PIVOT_FLOOR))
+        col = L[j:, j] / pivot                     # L column j (diag incl.)
+        L[j + 1:, j + 1:] -= col[1:, None] * col[None, 1:]
+        L[j:, j] = col
+    y = torch.zeros_like(g)
+    for i in range(d):
+        y[i] = (g[i] - torch.dot(L[i, :i], y[:i])) / L[i, i]
+    x = torch.zeros_like(g)
+    for i in reversed(range(d)):
+        x[i] = (y[i] - torch.dot(L[i + 1:, i], x[i + 1:])) / L[i, i]
+    return x * dinv                                # undo preconditioning

@@ -1,11 +1,12 @@
-"""Build and bind the CUDA patch kernels (`csrc/patch_kernels.cu`).
+"""Build and bind the port's CUDA kernels (every `csrc/*.cu`).
 
-The source has a plain C interface; it is compiled with nvcc for sm_90a into
-a shared library under `build/torch_kernels/` at the repository root (a
-directory `.gitignore` lists) the first time a kernel is launched on a CUDA
-tensor, and loaded with ctypes.  The library's file name carries a hash of
-the source and flags, so an edited source is rebuilt.  Nothing here runs at
-import time.
+Each source has a plain C interface.  All of them are compiled with nvcc for
+sm_90a, one nvcc per source started together, and linked into one shared
+library under `build/torch_kernels/` at the repository root (a directory
+`.gitignore` lists) the first time a kernel is launched on a CUDA tensor; the
+library is loaded with ctypes.  Its file name carries a hash of every
+source's name and bytes and of the flags, so an edited source is rebuilt.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import subprocess
 import time
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent.parent / "csrc" / "patch_kernels.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_info: dict = {}      # seconds, path and ptxas report of the last build
@@ -39,7 +40,12 @@ _SIGNATURES = {
     "launch_align_iclk_window": [_P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P,
                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P, _P, _P, _P],
+    "launch_probe_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -51,32 +57,55 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    raise RuntimeError("nvcc not found: the CUDA patch kernels are built "
-                       "from source and need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source and need the CUDA toolkit")
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()[:12]
 
 
 def build(force: bool = False) -> Path:
-    """Compile the kernels (if the library for this source is not built
+    """Compile the kernels (if the library for these sources is not built
     yet) and return the library's path."""
-    src = SRC.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libpatch_kernels_{digest[:12]}.so"
+    srcs = sources()
+    so = BUILD_DIR / f"libtorch_kernels_{_digest(srcs)}.so"
     if so.exists() and not force:
         build_info.setdefault("path", str(so))
         build_info.setdefault("seconds", 0.0)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC)]
+    nvcc = nvcc_path()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = so.with_name(f"{tag}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=seconds,
-                      ptxas=(proc.stdout + proc.stderr).strip())
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        reports = [(src, proc.communicate()[0], proc.returncode)
+                   for src, proc in zip(srcs, procs)]
+        failed = [f"{src.name} ({rc}):\n{out}"
+                  for src, out, rc in reports if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
+                      ptxas="\n".join(out.strip() for _, out, _ in reports))
     return so
 
 

@@ -6,20 +6,41 @@
 Phases (any failed check exits non-zero; the last line is printed only when
 every phase passed):
   1. device  — needs torch.cuda; prints the card's name and power limit.
-  2. build   — compiles the CUDA patch kernels from csrc/ with nvcc.
-  3. gate    — each kernel against its plain PyTorch version on the card at
-               the tracking path's shapes (768 features, 640x480 pyramid),
-               with the bounds of the JAX package's kernel gate; times each
-               kernel, its plain version and (where one exists) a library
-               call with CUDA events, and computes its bound.
+  2. build   — compiles every CUDA source in csrc/ with nvcc (in parallel)
+               into one library.
+  3. gate    — each patch kernel against its plain PyTorch version on the
+               card at the tracking path's shapes (768 features, 640x480
+               pyramid), with the bounds of the JAX package's kernel gate;
+               times each kernel, its plain version and (where one exists) a
+               library call with CUDA events, and computes its bound.
+  3b. probe  — probe_patches_kernel variants A-D against their plain version
+               (<= 1e-5) and variant A against interp.extract_patches
+               (<= 1e-4) at N=2048 on 480x640; kernel, plain and grid_sample
+               times and the bound.
+  3c. microbench — the gather microbench (tools/microbench_gather.py), the
+               probe kernel's path; its launches are counted.
   4. main    — FrameHandler at 640x480, SVOConfig(init_min_disparity=20,
                max_n_kfs=8, loba_n_iter=0), 40 frames of the bench orbit
                rendered on the card: bootstrap, tracking, keyframes.  Every
                kernel's launch count must grow during this run.
+  4b. profile — torch.profiler over six steady-state frames.
   5. plain   — the same 40 frames with use_pallas=False on the card; the
                launch counts must not move, and the trajectory must agree.
-Prints a `{"kernels": [...]}` line and ends with one JSON line
-`{"ok": true, "device": {...}}`.
+  6. default — FrameHandler at the default configuration with local BA on,
+               SVOConfig(init_min_disparity=20, max_n_kfs=8), over the full
+               148-frame bench orbit: DEFAULT reached, 0 failures, local BA
+               run, every patch kernel launched, ATE <= 0.02; one local BA
+               call profiled; then make_track_scan over frames 40-63 from a
+               fresh handler's steady state: 0 failures, ATE <= 0.02 with
+               the handler's earlier frames, t_wc within 0.02 of the run
+               above (which runs local BA between those frames).
+  7. reloc   — the relocalization demo (tools/reloc_demo.py): tracking lost
+               on blank frames, recovered, final stage DEFAULT, every patch
+               kernel launched.
+Each path (3c, 4, 5, 6, 7) runs with the launch counts set to 0 just before
+it and read just after.
+Prints a `{"kernels": [...]}` line (all five kernels) and ends with one JSON
+line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -28,7 +49,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -48,8 +68,19 @@ KERNEL_META = {
         "android_svo_tpu/ops/patch_pallas.py:692 (_dump_pallas) + "
         "android_svo_tpu/ops/patch_pallas.py:779 (align_iclk_mxu ICLK)"),
 }
+PROBE_REPLACES = (
+    "scripts/probe_pallas_patch.py:26 (_kernel), "
+    "scripts/microbench_gather.py:133 (patch_kernel), "
+    "scripts/probe_pallas_variants.py:25 (make_kernel)")
 SOURCE = "android_svo_tpu_torch/csrc/patch_kernels.cu"
+PROBE_SOURCE = "android_svo_tpu_torch/csrc/gather_probe_kernels.cu"
 N_FRAMES = 40
+N_ORBIT = 148            # bench.py's full orbit (make_poses(148, 0.02))
+SCAN_START, SCAN_LEN = 40, 24
+SCAN_TOL = 0.02          # scan (no BA) vs the default path (BA at its
+                         # keyframes): PERF.md section 2's ATE limit
+JAX_ATE_HOST = 0.00151   # BENCH_r05.json, 148-frame orbit with local BA
+RELOC_R05 = {"reloc_entered_at": 19, "recovered_at": 22, "ate": 0.00723}
 
 
 class CheckFailed(RuntimeError):
@@ -63,15 +94,6 @@ def require(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_label():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0].strip()
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -160,23 +182,62 @@ def kernel_bounds(x, pk):
     return out
 
 
-def library_sample_ms(x):
-    """One PyTorch call computing the sparse-align sampler's function on the
-    same inputs: grid_sample (bilinear, border clamp) on the substack."""
+def grid_sample_ms(planes, px, py):
+    """One PyTorch call computing a bilinear sampler's function:
+    grid_sample (bilinear, border clamp) of the (C, H, W) planes at the
+    pixels (px, py).  Returns (ms per call, device ms of its kernel)."""
     import torch
     import torch.nn.functional as F
+    _, h, w = planes.shape
+    grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1],
+                       -1)[None]
+    im = planes[None].contiguous()
+
+    def call():
+        return F.grid_sample(im, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return time_ms(call), device_ms(call, "grid_sampler")
+
+
+def library_sample_ms(x):
+    """grid_sample on the sparse-align sampler's inputs: 4x4 patches on the
+    substack."""
+    import torch
     sub = x["sub"]
-    _, hs, ws = sub.shape
     offs = torch.arange(4, device=sub.device, dtype=torch.float32) - 2
     oy, ox = torch.meshgrid(offs, offs, indexing="ij")
     px = x["sub_uv"][:, None, 0] + ox.reshape(1, -1)
     py = x["sub_uv"][:, None, 1] + oy.reshape(1, -1)
-    grid = torch.stack([2 * px / (ws - 1) - 1, 2 * py / (hs - 1) - 1], -1)
-    img = sub[None].contiguous()
-    grid = grid[None]
-    return time_ms(lambda: F.grid_sample(img, grid, mode="bilinear",
-                                         padding_mode="border",
-                                         align_corners=True))
+    return grid_sample_ms(sub, px, py)
+
+
+def probe_bound(img, uv, variant):
+    """Least time for one probe call: the distinct pixels its windows touch
+    (clamped to the image) read once, uv read once, the patches written
+    once; ~11 fp32 flops per output pixel."""
+    import torch
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    h, w = img.shape
+    oy, ox = gp.window_origin(uv, variant, h, w)
+    r = torch.arange(gp.P + 1, device=uv.device)
+    rows = (oy[:, None, None] + r[None, :, None]).clamp(0, h - 1)
+    cols = (ox[:, None, None] + r[None, None, :]).clamp(0, w - 1)
+    mask = torch.zeros(h * w, dtype=torch.bool, device=uv.device)
+    mask[(rows * w + cols).reshape(-1)] = True
+    n = uv.shape[0]
+    return bound(int(mask.sum()) * 4 + n * 8 + n * gp.P * gp.P * 4,
+                 n * gp.P * gp.P * 11)
+
+
+def library_probe_ms(img, uv):
+    """grid_sample on the probe's inputs: variant A's function, every patch
+    pixel of every uv."""
+    from android_svo_tpu_torch.ops import gather_probe as gp, interp
+    offs = interp.patch_offsets(gp.P // 2, device=uv.device)
+    px = uv[:, None, 0] + offs[None, :, 0]
+    py = uv[:, None, 1] + offs[None, :, 1]
+    return grid_sample_ms(img[None], px, py)
 
 
 def make_poses(synthetic, n, step, device):
@@ -203,13 +264,31 @@ STAGES = ("pyramid_creation", "sparse_img_align", "reproject",
           "pose_optimizer", "point_optimizer", "depth_filter", "keyframe")
 
 
+def device_summary(events, per=1, n_top=10):
+    """Device busy ms (summed durations of the device activities: kernels,
+    copies; the stage annotations excluded), the activities' count and the
+    `n_top` that take the most time, each divided by `per`."""
+    from torch.autograd import DeviceType
+    busy_us, n_dev, by_name = 0.0, 0, {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in STAGES:
+            dur = e.time_range.elapsed_us()
+            busy_us += dur
+            n_dev += 1
+            tot, cnt = by_name.get(e.name[:80], (0.0, 0))
+            by_name[e.name[:80]] = (tot + dur, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return {"device_busy_ms": busy_us / 1e3 / per,
+            "device_activities": n_dev / per,
+            "top_device_ops": [[k, v[0] / 1e3 / per, v[1] / per]
+                               for k, v in top]}
+
+
 def profile_frames(cfg, cam, imgs, device, start, n):
     """torch.profiler over n steady-state tracking frames (after `start`
-    frames of warm-up).  Device busy time = summed durations of the device
-    activities (kernels, copies; the stage annotations excluded); per stage
-    (the track_frame ranges): host wall time, the device time of the work
-    launched inside it, and its span on the device timeline; the device
-    activities that take the most time."""
+    frames of warm-up): `device_summary` per frame and, per stage (the
+    track_frame ranges), host wall time, the device time of the work
+    launched inside it, and its span on the device timeline."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -226,31 +305,44 @@ def profile_frames(cfg, cam, imgs, device, start, n):
             handler.add_image(img)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    busy_us, n_dev = 0.0, 0
-    by_name: dict = {}
     stages = {k: {"host_ms": 0.0, "device_ms": 0.0, "device_span_ms": 0.0}
               for k in STAGES}
-    for e in prof.events():
-        dur = e.time_range.elapsed_us()
+    events = prof.events()
+    for e in events:
         if e.name in STAGES:
             st = stages[e.name]
+            dur = e.time_range.elapsed_us()
             if e.device_type == DeviceType.CUDA:
                 st["device_span_ms"] += dur / 1e3 / n
             else:
                 st["host_ms"] += dur / 1e3 / n
                 st["device_ms"] += _device_time_us(e) / 1e3 / n
-        elif e.device_type == DeviceType.CUDA:
-            busy_us += dur
-            n_dev += 1
-            key = e.name[:80]
-            tot, cnt = by_name.get(key, (0.0, 0))
-            by_name[key] = (tot + dur, cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"frames": n, "wall_ms_profiled": wall_ms,
-            "device_busy_ms": busy_us / 1e3 / n,
-            "device_activities_per_frame": n_dev / n, "stages": stages,
-            "top_device_ops": [[k, v[0] / 1e3 / n, v[1] / n]
-                               for k, v in top]}
+            **device_summary(events, n), "stages": stages}
+
+
+def profile_call(fn, reps=3):
+    """Host ms (synchronised) and dispatch ms of fn, and `device_summary`
+    of one more call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    host, dispatch = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dispatch.append((t1 - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {"host_ms": statistics.median(host),
+            "dispatch_ms": statistics.median(dispatch),
+            **device_summary(prof.events(), n_top=5)}
 
 
 def run_sequence(cfg, cam, imgs, poses, device):
@@ -260,8 +352,9 @@ def run_sequence(cfg, cam, imgs, poses, device):
     from android_svo_tpu_torch.evals.trajectory import ate_rmse
 
     handler = fh.FrameHandler(cam, cfg, device=device)
-    est, gt, track_ms, results = [], [], [], []
+    est, gt, est_frames, track_ms, results = [], [], [], [], []
     n_fail = n_kf = 0
+    kf_ms = []
     for i, img in enumerate(imgs):
         was_default = handler.stage == fh.STAGE_DEFAULT_FRAME
         torch.cuda.synchronize()
@@ -273,18 +366,24 @@ def run_sequence(cfg, cam, imgs, poses, device):
             t_wc = res.t_wc if res.t_wc is not None else res.T_cw.inverse().t
             est.append(t_wc.detach().cpu().numpy().astype(np.float64))
             gt.append(poses[i].t.detach().cpu().numpy().astype(np.float64))
+            est_frames.append(i)
         if was_default:
             track_ms.append(dt)
             results.append(res.result)
             n_fail += res.result == pipeline.RES_FAILURE
             n_kf += res.result == pipeline.RES_IS_KEYFRAME
+            if res.result == pipeline.RES_IS_KEYFRAME:
+                kf_ms.append(dt)
     est = np.array(est)
     gt = np.array(gt)
     ate = ate_rmse(est, gt) if len(est) >= 3 else float("inf")
     return {"stage": handler.stage, "n_fail": int(n_fail), "n_kf": int(n_kf),
-            "ate": ate, "est": est, "n_tracked_frames": len(track_ms),
+            "ate": ate, "est": est, "est_frames": est_frames, "gt": gt,
+            "n_tracked_frames": len(track_ms),
             "median_ms": statistics.median(track_ms) if track_ms else None,
-            "results": results,
+            "results": results, "handler": handler,
+            "median_kf_ms": statistics.median(kf_ms) if kf_ms else None,
+            "n_local_ba": handler.n_local_ba,
             "n_kf_total": int(handler.vo.kfs.valid.sum())}
 
 
@@ -307,13 +406,16 @@ def main() -> int:
         return 3
 
     from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import pipeline
     from android_svo_tpu_torch.data import synthetic
-    from android_svo_tpu_torch.ops import cuda_build, silicon_gate
+    from android_svo_tpu_torch.ops import cuda_build, interp, silicon_gate
+    from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.tools import microbench_gather, reloc_demo
 
     dev = torch.device("cuda")
     # ---- 1. device --------------------------------------------------------
-    label = card_label()
+    label = microbench_gather.card_label()
     kind = torch.cuda.get_device_name(0)
     log(label)                  # nvidia-smi's name,power.limit line
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -339,6 +441,9 @@ def main() -> int:
     calls = silicon_gate.kernel_calls(x)
     bounds = kernel_bounds(x, pk)
     lib_ms = {"sample_patches_kernel": library_sample_ms(x)}
+    log(f"grid_sample for sample_patches_kernel: "
+        f"{lib_ms['sample_patches_kernel'][0]:.4f} ms, device "
+        f"{lib_ms['sample_patches_kernel'][1]} ms [{label}]")
     timing = {}
     for name, fn in calls.items():
         k_ms = time_ms(lambda: fn(True))
@@ -353,6 +458,49 @@ def main() -> int:
             f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
             f"{p_ms:.4f} ms, bound {bounds[name][0]:.5f} ms "
             f"({bounds[name][1]}) [{label}]")
+
+    # ---- 3b. probe kernel gate + timings ------------------------------------------
+    pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
+    ref_a = interp.extract_patches(pimg, puv, gp.P // 2)
+    probe = {}
+    for v in gp.VARIANTS:
+        out_k = gp.probe_patches(pimg, puv, v)
+        out_p = gp.probe_patches_plain(pimg, puv, v)
+        torch.cuda.synchronize()
+        d_plain = float((out_k - out_p).abs().max())
+        require(d_plain <= 1e-5, f"probe variant {v}: max |d| vs plain "
+                f"{d_plain} > 1e-5")
+        if v == "A":
+            d_ext = float((out_k - ref_a).abs().max())
+            require(d_ext <= 1e-4, f"probe variant A: max |d| vs "
+                    f"extract_patches {d_ext} > 1e-4")
+
+        def call(v=v):
+            return gp.probe_patches(pimg, puv, v)
+
+        k_ms = time_ms(call)
+        p_ms = time_ms(lambda v=v: gp.probe_patches_plain(pimg, puv, v))
+        d_ms = device_ms(call, "probe_patches_kernel")
+        probe[v] = {"max_abs_err": d_plain, "ms": k_ms, "kernel_ms": d_ms,
+                    "plain_ms": p_ms, "bound": probe_bound(pimg, puv, v)}
+        log(f"probe {v}: max |d| vs plain {d_plain:.2e}, wrapper "
+            f"{k_ms:.4f} ms, device "
+            f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
+            f"{p_ms:.4f} ms, bound {probe[v]['bound'][0]:.5f} ms "
+            f"({probe[v]['bound'][1]}) [{label}]")
+    probe_lib_ms, probe_lib_dev = library_probe_ms(pimg, puv)
+    log(f"probe A: max |d| vs extract_patches {d_ext:.2e}; grid_sample "
+        f"{probe_lib_ms:.4f} ms, device {probe_lib_dev} ms [{label}]")
+
+    # ---- 3c. the gather microbench (the probe kernel's path) -------------------
+    gp.reset_launch_counts()
+    mb = microbench_gather.run(log=log)
+    probe_launches = gp.LAUNCHES["probe_patches_kernel"]
+    log(f"launches on the microbench path: {probe_launches}")
+    require(probe_launches > 0, "the microbench did not launch "
+            "probe_patches_kernel")
+    require(mb["probe"]["A"]["max_err_vs_extract"] <= 1e-4,
+            "microbench: probe variant A disagrees with extract_patches")
 
     # ---- 4. main path on the kernels -------------------------------------------
     cfg = SVOConfig(init_min_disparity=20.0, max_n_kfs=8, loba_n_iter=0)
@@ -403,6 +551,104 @@ def main() -> int:
     require(abs(run_p["n_kf"] - run_k["n_kf"]) <= 1,
             f"keyframes {run_k['n_kf']} vs plain {run_p['n_kf']}")
 
+    # ---- 6. the default configuration: local BA on, full orbit ------------------
+    cfg_d = SVOConfig(init_min_disparity=20.0, max_n_kfs=8)
+    poses_d = make_poses(synthetic, N_ORBIT, 0.02, dev)
+    imgs_d = [synthetic.render(tex, cam, p) for p in poses_d]
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    run_d = run_sequence(cfg_d, cam, imgs_d, poses_d, dev)
+    launches_d = dict(pk.LAUNCHES)
+    log(f"default path [{label}]: {N_ORBIT} frames, stage {run_d['stage']}, "
+        f"tracked frames {run_d['n_tracked_frames']}, failures "
+        f"{run_d['n_fail']}, keyframes after bootstrap {run_d['n_kf']}, "
+        f"local BA runs {run_d['n_local_ba']}, ATE {run_d['ate']:.6f} (JAX "
+        f"ate_host {JAX_ATE_HOST}), median {run_d['median_ms']:.2f} "
+        f"ms/frame, keyframe frames {run_d['median_kf_ms']:.2f} ms")
+    log(f"launches on the default path: {json.dumps(launches_d)}")
+    require(run_d["stage"] == 3, "default path did not reach DEFAULT")
+    require(run_d["n_fail"] == 0, f"default path: {run_d['n_fail']} "
+            "tracking failures")
+    require(run_d["n_local_ba"] >= 1, "default path never ran local BA")
+    require(math.isfinite(run_d["ate"]) and run_d["ate"] <= 0.02,
+            f"default path ATE {run_d['ate']} > 0.02")
+    for name, cnt in launches_d.items():
+        require(cnt > 0, f"{name} was not launched on the default path")
+    handler_d = run_d.pop("handler")
+    ba_prof = profile_call(lambda: handler_d._run_local_ba(handler_d.vo))
+    ba_prof["card"] = label
+    print(json.dumps({"local_ba": ba_prof}), flush=True)
+
+    # make_track_scan from a fresh handler's steady state, held against the
+    # ground truth and against the handler run above over the same frames
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.evals.trajectory import ate_rmse
+    fresh = fh.FrameHandler(cam, cfg_d, device=dev)
+    est_s, gt_s = [], []
+    for i, img in enumerate(imgs_d[:SCAN_START]):
+        res = fresh.add_image(img)
+        if fresh.stage == fh.STAGE_DEFAULT_FRAME:
+            t_wc = res.t_wc if res.t_wc is not None else res.T_cw.inverse().t
+            est_s.append(t_wc.cpu().numpy().astype(np.float64))
+            gt_s.append(poses_d[i].t.cpu().numpy().astype(np.float64))
+    require(fresh.stage == 3, "fresh handler did not reach DEFAULT")
+    vo0 = fresh.vo
+    window = torch.stack(imgs_d[SCAN_START:SCAN_START + SCAN_LEN])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vo = vo0
+    for img in window:
+        vo, _ = fresh._track(vo, img)
+    torch.cuda.synchronize()
+    t_steps = (time.perf_counter() - t0) * 1e3 / SCAN_LEN
+    scan = pipeline.make_track_scan(cfg_d, cam, fresh.dims)
+    t0 = time.perf_counter()
+    _, outs = scan(vo0, window)
+    torch.cuda.synchronize()
+    t_scan = (time.perf_counter() - t0) * 1e3 / SCAN_LEN
+    twc_scan = outs["t_wc"].cpu().numpy().astype(np.float64)
+    scan_frames = range(SCAN_START, SCAN_START + SCAN_LEN)
+    ate_scan = ate_rmse(
+        np.concatenate([np.array(est_s), twc_scan]),
+        np.concatenate([np.array(gt_s), np.stack(
+            [poses_d[i].t.cpu().numpy() for i in scan_frames])]))
+    row = {f: j for j, f in enumerate(run_d["est_frames"])}
+    require(all(f in row for f in scan_frames),
+            "the default path lost frames inside the scan window")
+    d_scan = float(np.abs(twc_scan - run_d["est"][
+        [row[f] for f in scan_frames]]).max())
+    n_fail_scan = int((outs["result"] == pipeline.RES_FAILURE).sum())
+    log(f"track_scan [{label}]: frames {SCAN_START}-"
+        f"{SCAN_START + SCAN_LEN - 1}, failures {n_fail_scan}, ATE with the "
+        f"fresh handler's frames {ate_scan:.6f}, t_wc max |d| vs the default "
+        f"path (local BA between its frames) {d_scan:.2e}, "
+        f"{t_scan:.2f} ms/frame (per-frame steps {t_steps:.2f} ms/frame)")
+    require(n_fail_scan == 0, f"track_scan: {n_fail_scan} failures")
+    require(math.isfinite(ate_scan) and ate_scan <= 0.02,
+            f"track_scan ATE {ate_scan} > 0.02")
+    require(d_scan <= SCAN_TOL, f"track_scan t_wc differ from the default "
+            f"path by {d_scan} > {SCAN_TOL}")
+
+    # ---- 7. relocalization scenario ------------------------------------------------
+    pk.reset_launch_counts()
+    rel = reloc_demo.run(
+        device=dev, trace=os.path.join(here, "build", "reloc_trace.jsonl"),
+        log=log)
+    launches_r = dict(pk.LAUNCHES)
+    rel["card"] = label
+    print(json.dumps({"reloc": rel}), flush=True)
+    log(f"reloc [{label}]: entered {rel['reloc_entered_at']} (JAX "
+        f"{RELOC_R05['reloc_entered_at']}), recovered {rel['recovered_at']} "
+        f"(JAX {RELOC_R05['recovered_at']}), ATE {rel['ate']} (JAX "
+        f"{RELOC_R05['ate']}), local BA runs {rel['local_ba_runs']}")
+    require(rel["reloc_entered_at"] is not None,
+            "reloc: tracking was never lost")
+    require(rel["recovered_at"] is not None, "reloc: never recovered")
+    require(rel["final_stage"] == 3, "reloc: final stage is not DEFAULT")
+    log(f"launches on the reloc path: {json.dumps(launches_r)}")
+    for name, cnt in launches_r.items():
+        require(cnt > 0, f"{name} was not launched on the reloc path")
+
     kernels = []
     for name in ("sample_patches_kernel", "align_iclk_window_kernel",
                  "epi_scan_kernel", "align_iclk_kernel"):
@@ -411,17 +657,50 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": KERNEL_META[name], "launches": launches[name],
+            "launches_by_path": {"main": launches[name],
+                                 "default": launches_d[name],
+                                 "reloc": launches_r[name]},
             "max_abs_err": gate.max_abs_err.get(name, 0.0), "ms": k_ms,
             "kernel_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": b_bytes, "bound_flops": b_flops,
-            "library_ms": lib_ms.get(name), "card": label})
-    print(json.dumps({"kernels": kernels}), flush=True)
+            "library_ms": lib_ms.get(name, (None, None))[0],
+            "library_kernel_ms": lib_ms.get(name, (None, None))[1],
+            "card": label})
+    pa = probe["A"]
+    kernels.append({
+        "name": "probe_patches_kernel", "route": "cuda",
+        "source": PROBE_SOURCE, "replaces": PROBE_REPLACES,
+        "launches": probe_launches,
+        "launches_by_path": {"microbench": probe_launches},
+        "max_abs_err": max(p["max_abs_err"] for p in probe.values()),
+        "ms": pa["ms"], "kernel_ms": pa["kernel_ms"],
+        "plain_ms": pa["plain_ms"], "bound_ms": pa["bound"][0],
+        "bound_by": pa["bound"][1], "bound_bytes": pa["bound"][2],
+        "bound_flops": pa["bound"][3], "library_ms": probe_lib_ms,
+        "library_kernel_ms": probe_lib_dev,
+        "variants": {v: {"ms": p["ms"], "kernel_ms": p["kernel_ms"],
+                         "plain_ms": p["plain_ms"],
+                         "bound_ms": p["bound"][0],
+                         "max_abs_err": p["max_abs_err"]}
+                     for v, p in probe.items()},
+        "card": label})
+    print(json.dumps({"microbench_gather": mb}), flush=True)
     print(json.dumps({"main_path": {
         "card": label, "ate": run_k["ate"], "ate_plain": run_p["ate"],
         "median_ms": run_k["median_ms"],
         "fps": 1e3 / run_k["median_ms"],
         "median_ms_plain": run_p["median_ms"], "keyframes": run_k["n_kf"],
         "keyframes_plain": run_p["n_kf"], "centre_dev": dc}}), flush=True)
+    print(json.dumps({"default_path": {
+        "card": label, "frames": N_ORBIT, "ate": run_d["ate"],
+        "jax_ate_host": JAX_ATE_HOST, "median_ms": run_d["median_ms"],
+        "median_kf_ms": run_d["median_kf_ms"],
+        "keyframes": run_d["n_kf"], "local_ba_runs": run_d["n_local_ba"],
+        "local_ba_host_ms": ba_prof["host_ms"],
+        "local_ba_device_ms": ba_prof["device_busy_ms"],
+        "scan_ms_per_frame": t_scan, "steps_ms_per_frame": t_steps,
+        "scan_twc_dev": d_scan}}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,6 +37,11 @@ from android_svo_tpu_torch.data import synthetic
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import pyramid
 
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
+
 W, H = 320, 240
 CFG_KW = dict(max_n_kfs=8, max_points=2048, max_seeds=1024,
               ransac_n_trials=128, img_align_n_iter=15,

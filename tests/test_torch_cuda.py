@@ -1,4 +1,5 @@
-"""The CUDA patch kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels (the patch kernels and the gather probe) against their
+plain PyTorch versions on the card.
 
 These need a CUDA device and the CUDA toolkit (the kernels are compiled with
 nvcc on first use); without a card they skip.  On a machine with one:
@@ -48,3 +49,33 @@ def test_wrapper_launches_and_counts(problem, name):
     call(True)
     torch.cuda.synchronize()
     assert pk.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_probe_kernel_matches_plain(card, variant):
+    """probe_patches_kernel against probe_patches_plain at the microbench's
+    size; the kernel rounds each operation as the plain version does."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    from android_svo_tpu_torch.tools.microbench_gather import make_inputs
+    img, uv = make_inputs(seed=2, device=card)
+    gp.reset_launch_counts()
+    out = gp.probe_patches(img, uv, variant)
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES["probe_patches_kernel"] == 1
+    ref = gp.probe_patches_plain(img, uv, variant)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_probe_kernel_clamps_off_image(card):
+    """Off the scripts' ranges the kernel clamps its reads like the plain
+    version (no fault, same values)."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    img = torch.rand((40, 300), device=card)
+    uv = torch.tensor([[-30.2, -7.9], [299.6, 45.1], [3.5, 1.25],
+                       [float("nan"), 20.0]], device=card)
+    for v in gp.VARIANTS:
+        out = gp.probe_patches(img, uv, v)
+        torch.cuda.synchronize()
+        ref = gp.probe_patches_plain(img, uv, v)
+        torch.testing.assert_close(out, ref, atol=1e-6, rtol=0,
+                                   equal_nan=True)

@@ -21,6 +21,11 @@ from android_svo_tpu_torch.geometry import robust as rob
 from android_svo_tpu_torch.geometry import se3
 from android_svo_tpu_torch.geometry import triangulation as tri
 
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(0)
 ATOL = 1e-5
 

@@ -27,6 +27,11 @@ from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import detect, feature_align, interp, matcher
 from android_svo_tpu_torch.ops import pyramid, sparse_align
 
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
+
 W, H = 320, 240
 CFG_KW = dict(max_n_kfs=4, max_points=512, max_seeds=256)
 

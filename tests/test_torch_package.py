@@ -1,9 +1,12 @@
 """Package-level checks of the PyTorch port: it imports no JAX, its config
 mirrors the JAX one, its entry points refuse to fall back to the CPU, the
-branches it has not ported raise, and the state converts losslessly."""
+default configuration runs, the branches it has not ported raise, the state
+converts losslessly, and the trace monitor writes the JAX monitor's
+records."""
 
 import ast
 import dataclasses
+import json
 import pathlib
 
 import numpy as np
@@ -14,6 +17,11 @@ from android_svo_tpu.config import SVOConfig as JConfig
 
 from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import state as st
+
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "android_svo_tpu_torch").rglob("*.py")) + [
@@ -56,12 +64,13 @@ def _no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["frame_handler", "init_state",
-                                   "camera", "texture"])
+                                   "camera", "texture", "reloc_demo"])
 def test_entry_points_refuse_cpu_fallback(monkeypatch, entry):
     """Without a card, an entry point called without `device` raises
     instead of running on the CPU."""
     from android_svo_tpu_torch.core import frame_handler as fh
     from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.tools import reloc_demo
     _no_cuda(monkeypatch)
     cpu_cam = synthetic.default_camera(64, 48, device="cpu")
     cfg = SVOConfig(loba_n_iter=0)
@@ -72,31 +81,65 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, entry):
             st.init_state(cfg, 64, 48)
         elif entry == "camera":
             synthetic.default_camera(64, 48)
-        else:
+        elif entry == "texture":
             synthetic.make_texture(torch.Generator().manual_seed(0), 64)
+        else:
+            reloc_demo.run(frames=2, width=64, height=48, trace=None)
 
 
-def _cpu_cam():
+def test_microbench_refuses_without_card(monkeypatch):
+    """The gather microbench measures the card; without one it raises."""
+    from android_svo_tpu_torch.tools import microbench_gather
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        microbench_gather.run()
+
+
+def test_default_config_builds_and_tracks():
+    """`FrameHandler(cam, SVOConfig())` — local BA on — builds and tracks.
+    Its own bootstrap needs 50 px of disparity, more than this short
+    320x240 sweep gives before KLT loses the first frame, so the handler is
+    seated on the state of a handler that bootstrapped at 20 px (same
+    arenas); from there the default configuration tracks every frame and
+    runs local BA after the keyframe it inserts."""
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
     from android_svo_tpu_torch.data import synthetic
-    return synthetic.default_camera(64, 48, device="cpu")
+    cam = synthetic.default_camera(320, 240, device="cpu")
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024,
+                                 device="cpu")
+    imgs = [synthetic.render(tex, cam, synthetic.lookdown_pose(
+        0.05 * i, 0.015 * i, -3.0,
+        (0.45 + 0.002 * i, -0.002 * i, 0.004 * i), device="cpu"))
+        for i in range(14)]
+    boot = fh.FrameHandler(cam, SVOConfig(init_min_disparity=20.0),
+                           device="cpu")
+    i = 0
+    while boot.stage != fh.STAGE_DEFAULT_FRAME:
+        boot.add_image(imgs[i])
+        i += 1
+    handler = fh.FrameHandler(cam, SVOConfig(), device="cpu")
+    assert handler.cfg.loba_n_iter == 5
+    handler.vo, handler.stage = boot.vo, boot.stage
+    results = [handler.add_image(img).result for img in imgs[i:]]
+    assert pipeline.RES_FAILURE not in results
+    assert pipeline.RES_IS_KEYFRAME in results
+    assert handler.n_local_ba >= 1
+    assert handler.stage == fh.STAGE_DEFAULT_FRAME
 
 
 @pytest.mark.parametrize("field,value", [
-    ("loba_n_iter", 5), ("poseoptim_method", "lm"),
+    ("poseoptim_method", "lm"),
     ("structureoptim_method", "lm"), ("edgelet_detection", True),
     ("epi_search_1d", True), ("img_align_method", "lm"),
     ("find_match_direct", None)])
 def test_unported_branches_raise(field, value):
-    from android_svo_tpu_torch.core import frame_handler as fh
     from android_svo_tpu_torch.core import point_opt, pose_opt
     from android_svo_tpu_torch.ops import detect, matcher, sparse_align
     z = torch.zeros
     with pytest.raises(NotImplementedError, match=field.split("_method")[0]
                        if field == "img_align_method" else field):
-        if field == "loba_n_iter":
-            fh.FrameHandler(_cpu_cam(), SVOConfig(loba_n_iter=value),
-                            device="cpu")
-        elif field == "poseoptim_method":
+        if field == "poseoptim_method":
             from android_svo_tpu_torch.geometry.se3 import SE3
             pose_opt.optimize_pose(SE3.identity(), z(4, 3), z(4, 3),
                                    z(4, dtype=torch.int32),
@@ -163,3 +206,42 @@ def test_tf32_disabled_at_import():
     import android_svo_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_performance_monitor_writes_the_jax_records(tmp_path):
+    """The same timer and log calls give the same JSONL keys and logged
+    values in both packages' monitors (timings differ)."""
+    from android_svo_tpu.utils.profiling import PerformanceMonitor as JPM
+
+    from android_svo_tpu_torch.utils.profiling import PerformanceMonitor
+
+    recs = []
+    for cls, name in ((JPM, "jax.jsonl"), (PerformanceMonitor, "port.jsonl")):
+        pm = cls(trace_path=str(tmp_path / name))
+        for frame in range(3):
+            with pm.timer("tot_time"):
+                with pm.timer("local_ba" if frame == 1 else "reproject"):
+                    sum(range(1000))
+            pm.log("frame_id", frame)
+            pm.log("n_matches", 10 * frame)
+            pm.write_frame()
+        pm.close()
+        lines = (tmp_path / name).read_text().splitlines()
+        recs.append([json.loads(x) for x in lines])
+        assert set(pm.summary()) == {"tot_time", "local_ba", "reproject"}
+    assert len(recs[0]) == len(recs[1]) == 3
+    for a, b in zip(*recs):
+        assert list(a) == list(b)
+        assert {k: v for k, v in a.items() if not k.startswith("t_")} == {
+            k: v for k, v in b.items() if not k.startswith("t_")}
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """`device_trace` profiles its block (host activity here; the card's
+    too where there is one) and leaves a Chrome trace in the directory."""
+    from android_svo_tpu_torch.utils.profiling import device_trace
+    with device_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any("matmul" in e.key for e in prof.key_averages())
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]

@@ -21,6 +21,11 @@ from android_svo_tpu.ops.pyramid import build_stack
 
 from android_svo_tpu_torch.ops import patch_kernels as pk
 
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
+
 W, H, L = 320, 240, 3
 N = 48
 JAX_MODES = [pytest.param(dict(use_pallas=False), id="jax_spec"),

@@ -1,14 +1,19 @@
-"""The PyTorch port's slice as a whole, held against the JAX package on the
-CPU: (a) from one JAX-built post-bootstrap state both `track_frame`s run the
-next frames; (b) `bootstrap_pair` with the JAX package's RANSAC draws;
+"""The PyTorch port's slices as a whole, held against the JAX package on
+the CPU: (a) from one JAX-built post-bootstrap state both `track_frame`s run
+the next frames; (b) `bootstrap_pair` with the JAX package's RANSAC draws;
 (c) the port's own FrameHandler reaches DEFAULT, inserts a keyframe and
-never fails.
+never fails; (d) with local BA on (the default `loba_n_iter=5`) both
+FrameHandlers track the same frames from one JAX-built state, with the same
+per-frame trace records; (e) `relocalize_frame_at_pose` on one JAX-built
+state; (f) `make_track_scan` against JAX's scan.
 
 Frames are rendered by the JAX package's synthetic renderer at 320x240 (the
 size tests/test_pipeline.py tracks at) and handed to the port as numpy.
 """
 
+import copy
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -19,9 +24,13 @@ import torch
 from android_svo_tpu.config import SVOConfig as JConfig
 from android_svo_tpu.core import frame_handler as jfh
 from android_svo_tpu.core import initialization as jinit
+from android_svo_tpu.core import pipeline as jpipe
+from android_svo_tpu.core import state as jst
 from android_svo_tpu.data import synthetic as jsyn
 from android_svo_tpu.ops import detect as jdetect
+from android_svo_tpu.geometry.se3 import SE3 as JSE3
 from android_svo_tpu.ops import pyramid as jpyr
+from android_svo_tpu.utils.profiling import PerformanceMonitor as JPM
 
 from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import frame_handler as fh
@@ -29,12 +38,20 @@ from android_svo_tpu_torch.core import initialization as init
 from android_svo_tpu_torch.core import pipeline
 from android_svo_tpu_torch.core import state as st
 from android_svo_tpu_torch.data import synthetic
+from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import pyramid
+from android_svo_tpu_torch.utils.profiling import PerformanceMonitor
+
+# The tensors here are small and the suite's workers share the machine's
+# cores: one intra-op thread per process keeps torch's OpenMP pools from
+# oversubscribing them (they slow every worker, the JAX ones included).
+torch.set_num_threads(1)
 
 W, H = 320, 240
 CFG_KW = dict(max_n_kfs=8, max_points=2048, max_seeds=1024,
               ransac_n_trials=128, img_align_n_iter=15,
               init_min_disparity=20.0, loba_n_iter=0)
+CFG_BA = dict(CFG_KW, loba_n_iter=5)      # the default local BA
 N_FRAMES = 11          # bootstrap lands on frame 4; frames 5..10 tracked
 CPU = torch.device("cpu")
 
@@ -67,6 +84,19 @@ def jax_state_to_numpy(vo) -> dict:
     return out
 
 
+def numpy_to_jax_state(d: dict):
+    """A JAX VOState from the flat numpy dict (inverse of
+    `jax_state_to_numpy`)."""
+    subs = {"kfs": jst.KeyframeArena, "points": jst.PointArena,
+            "seeds": jst.SeedArena, "last": jst.FrameState}
+    parts = {name: cls(**{f.name: jnp.asarray(d[f"{name}.{f.name}"])
+                          for f in dataclasses.fields(cls)})
+             for name, cls in subs.items()}
+    rest = {f.name: jnp.asarray(d[f.name])
+            for f in dataclasses.fields(jst.VOState) if f.name not in subs}
+    return jst.VOState(**parts, **rest)
+
+
 def port_camera():
     return synthetic.default_camera(W, H, device=CPU)
 
@@ -90,6 +120,32 @@ def jax_run(seq):
                          "t_wc": np.asarray(res.t_wc)})
     assert boot_state is not None, "JAX handler did not bootstrap"
     return boot_state, outs
+
+
+@pytest.fixture(scope="module")
+def jax_run_ba(seq, tmp_path_factory):
+    """The JAX FrameHandler at the default local BA over the sequence, with
+    a trace monitor; keeps the post-bootstrap state, the tracked frames'
+    outputs and trace records, and the handler."""
+    cam, imgs, _ = seq
+    trace = tmp_path_factory.mktemp("jax_trace") / "trace.jsonl"
+    pm = JPM(trace_path=str(trace))
+    handler = jfh.FrameHandler(cam, JConfig(**CFG_BA), perf_mon=pm)
+    boot_state, outs, n_boot = None, [], 0
+    for i, img in enumerate(imgs):
+        was_default = handler.stage == jfh.STAGE_DEFAULT_FRAME
+        res = handler.add_image(jnp.asarray(img))
+        if not was_default and handler.stage == jfh.STAGE_DEFAULT_FRAME:
+            boot_state, n_boot = jax_state_to_numpy(handler.vo), i + 1
+        elif was_default:
+            outs.append({"result": res.result, "n_matches": res.n_matches,
+                         "n_edges": res.n_edges,
+                         "q": np.asarray(res.T_cw.q),
+                         "t_wc": np.asarray(res.t_wc)})
+    pm.close()
+    assert boot_state is not None, "JAX handler did not bootstrap"
+    records = [json.loads(x) for x in trace.read_text().splitlines()]
+    return boot_state, outs, records[n_boot:], handler
 
 
 def _quat_angle(q1, q2):
@@ -235,3 +291,99 @@ class TestPortFrameHandler:
         assert recovered, "the tracker never recovered"
         assert handler.stage == fh.STAGE_DEFAULT_FRAME
         assert ate_rmse(np.array(est), np.array(gt)) < 0.12
+
+
+class TestDefaultConfig:
+    """(d)-(f): local BA on, relocalization at a given keyframe, and the
+    whole-sequence scan, each from one JAX-built state."""
+
+    def test_tracks_like_jax_with_local_ba(self, seq, jax_run_ba, tmp_path):
+        _, imgs, _ = seq
+        boot_state, jouts, jrecords, _ = jax_run_ba
+        assert pipeline.RES_IS_KEYFRAME in [o["result"] for o in jouts]
+        pm = PerformanceMonitor(trace_path=str(tmp_path / "trace.jsonl"))
+        handler = fh.FrameHandler(port_camera(), SVOConfig(**CFG_BA),
+                                  perf_mon=pm, device="cpu")
+        handler.vo = st.state_from_numpy(boot_state, device=CPU)
+        handler.stage = fh.STAGE_DEFAULT_FRAME
+        start = len(imgs) - len(jouts)
+        for k, jo in enumerate(jouts):
+            res = handler.add_image(torch.from_numpy(imgs[start + k]))
+            assert res.result == jo["result"], (k, res.result, jo["result"])
+            for key in ("n_matches", "n_edges"):
+                a, b = getattr(res, key), jo[key]
+                assert abs(a - b) <= max(3, 0.03 * b), (k, key, a, b)
+            # slice 1's tolerances hold with BA in the loop
+            dc = np.abs(res.t_wc.numpy() - jo["t_wc"]).max()
+            assert dc < 2e-3, (k, dc)
+            ang = _quat_angle(res.T_cw.q.numpy(), jo["q"])
+            assert ang < 1e-3, (k, ang)
+        pm.close()
+        assert handler.n_local_ba >= 1
+        # the trace: one record per frame with the JAX monitor's keys and
+        # the same frame ids, stages and results
+        recs = [json.loads(x)
+                for x in (tmp_path / "trace.jsonl").read_text().splitlines()]
+        assert len(recs) == len(jrecords) == len(jouts)
+        for a, b in zip(recs, jrecords):
+            assert list(a) == list(b)
+            for key in ("frame_id", "stage", "result"):
+                assert a[key] == b[key], key
+
+    def test_relocalize_frame_at_pose_matches_jax(self, jax_run_ba):
+        """tests/test_map_viz.py's hook test on one state in both packages:
+        seat the tracker on the newest keyframe and feed that keyframe's
+        own image back; both recover its pose."""
+        *_, jhandler = jax_run_ba
+        jvo = jhandler.vo
+        k = int(np.argmax(np.asarray(jvo.kfs.frame_id)
+                          * np.asarray(jvo.kfs.valid)))
+        kf_id = int(jvo.kfs.frame_id[k])
+        img = np.asarray(jvo.kfs.stack[k, 0, :H, :W])
+        T_kw = JSE3(q=jvo.kfs.q_kw[k], t=jvo.kfs.t_kw[k])
+        jh = copy.copy(jhandler)
+        jres = jh.relocalize_frame_at_pose(kf_id, T_kw, jnp.asarray(img))
+        handler = fh.FrameHandler(port_camera(), SVOConfig(**CFG_BA),
+                                  device="cpu")
+        handler.vo = st.state_from_numpy(jax_state_to_numpy(jvo), device=CPU)
+        handler.stage = fh.STAGE_DEFAULT_FRAME
+        pT = SE3(q=torch.from_numpy(np.array(T_kw.q)),
+                 t=torch.from_numpy(np.array(T_kw.t)))
+        res = handler.relocalize_frame_at_pose(kf_id, pT,
+                                               torch.from_numpy(img))
+        assert res.result == jres.result != pipeline.RES_FAILURE
+        assert handler.stage == fh.STAGE_DEFAULT_FRAME
+        err = float(torch.linalg.norm(res.T_cw.inverse().t
+                                      - pT.inverse().t))
+        assert err < 0.01, err
+        dc = np.abs(res.t_wc.numpy() - np.asarray(jres.t_wc)).max()
+        assert dc < 2e-3, dc
+        unknown = handler.relocalize_frame_at_pose(
+            99999, pT, torch.zeros((H, W)))
+        assert unknown.result == pipeline.RES_FAILURE
+
+    def test_track_scan_matches_jax(self, seq, jax_run):
+        """Both packages' make_track_scan over the tracked frames from the
+        JAX post-bootstrap state (local BA is outside the scan in both)."""
+        cam, imgs, _ = seq
+        boot_state, jouts = jax_run
+        start = len(imgs) - len(jouts)
+        jscan = jax.jit(jpipe.make_track_scan(
+            JConfig(**CFG_KW), cam, jst.arena_dims(JConfig(**CFG_KW), W, H)))
+        _, jo = jscan(numpy_to_jax_state(boot_state),
+                      jnp.asarray(np.stack(imgs[start:])))
+        cfg = SVOConfig(**CFG_KW)
+        scan = pipeline.make_track_scan(cfg, port_camera(),
+                                        st.arena_dims(cfg, W, H))
+        _, po = scan(st.state_from_numpy(boot_state, device=CPU),
+                     torch.from_numpy(np.stack(imgs[start:])))
+        assert po["t_wc"].shape == (len(jouts), 3)
+        np.testing.assert_array_equal(po["result"].numpy(),
+                                      np.asarray(jo["result"]))
+        np.testing.assert_array_equal(po["result"].numpy(),
+                                      [o["result"] for o in jouts])
+        for key in ("n_matches", "n_edges"):
+            a, b = po[key].numpy(), np.asarray(jo[key])
+            assert (np.abs(a - b) <= np.maximum(3, 0.03 * b)).all(), key
+        assert np.abs(po["t_wc"].numpy() - np.asarray(jo["t_wc"])).max() \
+            < 2e-3
