@@ -8,13 +8,19 @@ plain PyTorch version beside it:
   sample_patches_kernel       _sample_pallas                      _sample_plain
   epi_scan_kernel             _scan_pallas                        _scan_plain
   align_iclk_kernel           _align_pallas                       _align_plain
-  align_iclk_window_kernel    _dump_pallas + align_iclk_mxu's     dump_windows_plain +
-                              one-hot einsum ICLK                 _align_mxu_plain
+  align_iclk_window_kernel    _dump_pallas + the rest of          dump_windows_plain +
+                              align_iclk_mxu (Hessian, one-hot    _align_mxu_plain
+                              einsum ICLK, gates)
 
 Dispatch: a wrapper launches the kernel when `use_pallas` is true and its
 tensors lie on a CUDA device, and takes the plain version only for CPU
 tensors (or when `use_pallas` is false).  On a CUDA tensor it launches or
 raises; there is no fallback.  Every launch adds one to `LAUNCHES[name]`.
+`sample_patches` and `align_iclk_mxu` convert nothing on CUDA: each makes
+its output allocations and one launch, and raises on inputs of another
+type or device (at the tracking path's sizes their kernels take 2-9 us on
+an NVIDIA H100 80GB HBM3 at 700 W, less than the dozens of small tensor
+ops they used to sit between).
 
 Layout contract as in the JAX package: the stack is `(L, Hp, Wp)` with level
 l in the top-left `(h>>l, w>>l)` corner; uv are level-pixel coordinates; the
@@ -30,6 +36,7 @@ import torch
 
 from android_svo_tpu_torch.geometry.linsolve import inv_spd
 from android_svo_tpu_torch.ops import interp
+from android_svo_tpu_torch.ops.cuda_build import library
 
 # feature_alignment.cpp:276: min_update_squared = 0.03*0.03
 MIN_UPDATE_SQUARED = 0.03 * 0.03
@@ -61,18 +68,46 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(device: int) -> int:
+    """The current stream's cudaStream_t on CUDA device index `device` (a C
+    call, no Python stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def _stack_args(stack: torch.Tensor):
-    if stack.dtype != torch.float32 or stack.dim() != 3:
+    if stack.dtype is not torch.float32 or stack.dim() != 3:
         raise ValueError(f"stack must be (L, H, W) float32, got "
                          f"{tuple(stack.shape)} {stack.dtype}")
-    if stack.stride(2) != 1:
+    s = stack.stride()
+    if s[2] != 1:
         raise ValueError("stack rows must be contiguous (stride(2) == 1)")
     L, H, W = stack.shape
-    return (_ptr(stack), stack.stride(0), stack.stride(1), L, H, W)
+    return (stack.data_ptr(), s[0], s[1], L, H, W)
+
+
+def _check(t, name: str, dtype, shape, device: int) -> None:
+    """Raise unless t is a `dtype` tensor of `shape` on CUDA device index
+    `device`: the redesigned wrappers convert nothing.  (The common case is
+    three attribute reads; the message is built only on failure.)"""
+    try:
+        if (t.dtype is dtype and t.shape == shape
+                and t.get_device() == device):
+            return
+        got = t.dtype
+    except AttributeError:
+        got = type(t).__name__
+    if got is not dtype:
+        raise TypeError(f"{name} must be a {dtype} tensor, got {got}")
+    if t.shape != shape:
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    raise ValueError(f"{name} is on {t.device}, the stack on device "
+                     f"{device}")
+
+
+def _contiguous(t, name: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _f32(t, device, shape=None):
@@ -96,7 +131,6 @@ def _nan0(t):
 
 
 def _launch(name: str, fn_name: str, *args) -> None:
-    from android_svo_tpu_torch.ops.cuda_build import library
     rc = getattr(library(), fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
@@ -127,30 +161,45 @@ def _sample_plain(stack, lvl, uv, half: int, grad: bool):
 
 
 def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
-    dev = stack.device
+    """One allocation and one launch: the kernel zeroes non-finite uv, reads
+    uv through its strides and takes a null `valid` as all live, so nothing
+    is converted here; inputs of another type or device raise."""
     n = uv.shape[0]
     p = 2 * half
-    outs = [torch.empty((n, p, p), dtype=torch.float32, device=dev)
-            for _ in range(3 if grad else 1)]
+    dev = stack.get_device()
+    if half < 1:
+        raise ValueError(f"half must be >= 1, got {half}")
+    _check(uv, "uv", torch.float32, (n, 2), dev)
+    _check(lvl, "lvl", torch.int32, (n,), dev)
+    _contiguous(lvl, "lvl")
+    if valid is not None:
+        _check(valid, "valid", torch.bool, (n,), dev)
+        _contiguous(valid, "valid")
+    out = torch.empty((3, n, p, p) if grad else (n, p, p),
+                      dtype=torch.float32, device=stack.device)
     if n:
-        lvl_c = _i32(lvl, dev)
-        uv_c = _f32(_nan0(uv), dev, (n, 2))
-        valid_c = (torch.ones((n,), dtype=torch.bool, device=dev)
-                   if valid is None else _b8(valid, dev))
-        o_dx = outs[1] if grad else outs[0]
-        o_dy = outs[2] if grad else outs[0]
+        su = uv.stride()
         _launch("sample_patches_kernel", "launch_sample_patches",
-                *_stack_args(stack), _ptr(lvl_c), _ptr(uv_c), _ptr(valid_c),
-                n, half, int(grad), _ptr(outs[0]), _ptr(o_dx), _ptr(o_dy),
-                _stream(stack))
-    return tuple(outs) if grad else outs[0]
+                *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[0],
+                su[1], None if valid is None else valid.data_ptr(), n, half,
+                int(grad), out.data_ptr(), _stream(dev))
+    return out.unbind(0) if grad else out
 
 
 def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
                    valid=None, use_pallas=True):
     """Bilinear (2*half)^2 patches (optionally with central-difference
     gradients) at per-feature pyramid level `lvl` and level-coords `uv`.
-    Returns (N, P, P) or a (patch, dx, dy) triple when grad=True."""
+    Returns (N, P, P) or a (patch, dx, dy) triple when grad=True.
+
+    On CUDA the kernel takes float32 uv (any strides; NaN and +-inf read as
+    0, as the JAX kernel path's nan_to_num), int32 `lvl` and bool `valid`
+    (or None: every slot live), and raises on other types; the wrapper
+    makes one allocation and one launch.  The kernel runs at the launch
+    floor (1.8 us at the sparse-align call's shapes on an NVIDIA H100 80GB
+    HBM3 at 700 W, against a bound of 0.04 us), so a call costs what the
+    host spends on it: the checks, the allocation and the ctypes call.  On the CPU the plain version
+    computes every slot from uv as given."""
     if _on_card(stack, use_pallas):
         return _sample_kernel(stack, lvl, uv, half, grad, valid)
     return _sample_plain(stack, lvl, uv, half, grad)
@@ -217,7 +266,7 @@ def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
         _launch("epi_scan_kernel", "launch_epi_scan", *_stack_args(stack),
                 int(h), int(w), _ptr(lvl_c), _ptr(a), _ptr(b), _ptr(ns),
                 _ptr(ref), n, int(n_steps_max), half, _ptr(best_t),
-                _ptr(best_s), _stream(stack))
+                _ptr(best_s), _stream(stack.get_device()))
     return best_t, best_s
 
 
@@ -324,7 +373,7 @@ def _align_kernel(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
         _launch("align_iclk_kernel", "launch_align_iclk", *_stack_args(stack),
                 int(h), int(w), *[_ptr(a) for a in args], n, int(n_iter),
                 half, _ptr(out_uv), _ptr(out_mean), _ptr(out_step2),
-                _stream(stack))
+                _stream(stack.get_device()))
     return out_uv, out_mean, out_step2
 
 
@@ -362,8 +411,8 @@ def _window_origin(stack, uv):
 def dump_windows_plain(stack, lvl, uv, valid=None):
     """One (DUMP_WR, DUMP_WC) window per feature around integer(uv), plus the
     window origin (xi, yi) — port of dump_windows' fallback path.  The
-    window kernel stages the same window in shared memory instead of
-    writing it out."""
+    window kernel reads this window's pixels in place, through the window's
+    own index clamps, instead of writing it out."""
     L, hp, wp = stack.shape
     uv = _nan0(uv)
     org = _window_origin(stack, uv)
@@ -465,27 +514,50 @@ def _align_mxu_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
     return torch.stack([u, v], dim=-1), mean, step2, score, std
 
 
-def _align_window_kernel(stack, lvl, T, gx, gy, hinv, uv0, valid,
-                         n_iter: int, half: int, h: int, w: int):
-    dev = stack.device
-    n = lvl.shape[0]
-    p = 2 * half
-    if (p * p) % 32 or p * p > 1024:
-        raise ValueError("align_iclk_window_kernel takes patches whose area "
-                         "is a multiple of 32, at most 1024 px")
-    outs = [torch.empty(s, dtype=torch.float32, device=dev)
-            for s in ((n, 2), (n,), (n,), (n,), (n,))]
+def _patch_args(t, name: str, n: int, p: int, device: int):
+    _check(t, name, torch.float32, (n, p, p), device)
+    s = t.stride()
+    if n and s[2] != 1:
+        raise ValueError(f"{name} rows must be contiguous (stride(2) == 1)")
+    return (t.data_ptr(), s[0], s[1])
+
+
+def _align_window_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int,
+                         h: int, w: int, zmssd_factor, min_patch_std):
+    """The whole of align_iclk_mxu in one launch (Hessian and inverse,
+    NaN-zeroing, window origin, ICLK, convergence and gates in the kernel);
+    the host allocates the three outputs and converts nothing."""
+    dev = stack.get_device()
+    n, p = T.shape[0], T.shape[-1]
+    if p % 2 or not 0 < p * p <= 128:
+        raise ValueError("align_iclk_window_kernel takes even patch sides "
+                         f"of at most 128 px, got {tuple(T.shape)}")
+    stack_args = _stack_args(stack)
+    args = [*_patch_args(T, "ref_patch", n, p, dev),
+            *_patch_args(gx, "ref_dx", n, p, dev),
+            *_patch_args(gy, "ref_dy", n, p, dev)]
+    _check(uv0, "init_uv", torch.float32, (n, 2), dev)
+    _check(lvl, "lvl", torch.int32, (n,), dev)
+    _contiguous(lvl, "lvl")
+    _check(valid, "valid", torch.bool, (n,), dev)
+    _contiguous(valid, "valid")
+    device = stack.device
+    out_uv = torch.empty((n, 2), dtype=torch.float32, device=device)
+    out_conv = torch.empty((n,), dtype=torch.bool, device=device)
+    out_mean = torch.empty((n,), dtype=torch.float32, device=device)
     if n:
-        uv0_c = _f32(uv0, dev, (n, 2))
-        org = _window_origin(stack, uv0_c).contiguous()
-        args = [_i32(lvl, dev), org, _f32(T, dev, (n, p, p)),
-                _f32(gx, dev, (n, p, p)), _f32(gy, dev, (n, p, p)),
-                _f32(hinv, dev, (n, 3, 3)), uv0_c, _b8(valid, dev)]
+        su = uv0.stride()
+        zmssd_on = zmssd_factor is not None
+        std_on = min_patch_std is not None
         _launch("align_iclk_window_kernel", "launch_align_iclk_window",
-                *_stack_args(stack), int(h), int(w), *[_ptr(a) for a in args],
-                n, int(n_iter), half, *[_ptr(o) for o in outs],
-                _stream(stack))
-    return tuple(outs)
+                *stack_args, int(h), int(w), lvl.data_ptr(), *args,
+                uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n,
+                int(n_iter), p // 2, int(zmssd_on),
+                float(zmssd_factor) * p * p if zmssd_on else 0.0,
+                int(std_on), float(min_patch_std) if std_on else 0.0,
+                out_uv.data_ptr(), out_conv.data_ptr(), out_mean.data_ptr(),
+                _stream(dev))
+    return out_uv, out_conv, out_mean
 
 
 def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
@@ -495,19 +567,31 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     """align_iclk on a per-feature window staged once (the JAX package's
     align_iclk_mxu), with the direct-match appearance gates computed from
     the final resample: `converged` folds in `score < zmssd_factor * area`
-    and `std >= min_patch_std` when they are given."""
+    and `std >= min_patch_std` when they are given.
+
+    On CUDA one launch of align_iclk_window_kernel computes all of it; the
+    wrapper allocates the outputs and raises on inputs that are not float32
+    patches (any strides with contiguous rows) and uv, int32 `lvl` and bool
+    `valid` on the stack's device.  The kernel is bound by the dependent
+    chain of each feature's iterations (one warp each: 8.8-9.0 us at 768
+    features on an NVIDIA H100 80GB HBM3 at 700 W, against a bytes bound
+    of 0.34 us); the host's checks, three allocations and the ctypes call
+    cost more.  On the CPU the plain
+    version runs."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
+    if _on_card(stack, use_pallas):
+        return _align_window_kernel(stack, lvl, ref_patch, ref_dx, ref_dy,
+                                    init_uv, valid, n_iter, h, w,
+                                    zmssd_factor, min_patch_std)
     n, p, _ = ref_patch.shape
     area = p * p
     hinv = _iclk_hinv(ref_dx, ref_dy)
     init_uv = _nan0(init_uv)
-    fn = (_align_window_kernel if _on_card(stack, use_pallas)
-          else _align_mxu_plain)
-    uv, mean, step2, score, std = fn(stack, lvl, ref_patch, ref_dx, ref_dy,
-                                     hinv, init_uv, valid, n_iter, p // 2,
-                                     h, w)
+    uv, mean, step2, score, std = _align_mxu_plain(
+        stack, lvl, ref_patch, ref_dx, ref_dy, hinv, init_uv, valid, n_iter,
+        p // 2, h, w)
     drift = torch.linalg.norm(uv - init_uv, dim=-1)
     converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
     if zmssd_factor is not None:

@@ -75,7 +75,8 @@ def gate_inputs(n: int = 768, h: int = 480, w: int = 640, seed: int = 0,
     zeros_lvl = torch.zeros((n,), dtype=torch.int32, device=dev)
     return {
         "stack": stack, "lvl": lvl, "uv": uv, "valid": valid, "ref": ref,
-        "rdx": rdx, "rdy": rdy, "off": off, "seg": seg, "nsteps": nsteps,
+        "rdx": rdx, "rdy": rdy, "off": off, "init": uv + off, "seg": seg,
+        "nsteps": nsteps,
         "h": h, "w": w, "sub": sub, "sub_uv": sub_uv, "zeros_lvl": zeros_lvl,
     }
 
@@ -93,11 +94,10 @@ def kernel_calls(x: dict) -> dict:
             w=x["w"], use_pallas=up),
         "align_iclk_kernel": lambda up: pk.align_iclk(
             x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
-            x["uv"] + x["off"], x["valid"], 10, h=x["h"], w=x["w"],
-            use_pallas=up),
+            x["init"], x["valid"], 10, h=x["h"], w=x["w"], use_pallas=up),
         "align_iclk_window_kernel": lambda up: pk.align_iclk_mxu(
             x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
-            x["uv"] + x["off"], x["valid"], 10, h=x["h"], w=x["w"],
+            x["init"], x["valid"], 10, h=x["h"], w=x["w"],
             use_pallas=up, zmssd_factor=2000.0, min_patch_std=5.0),
     }
 

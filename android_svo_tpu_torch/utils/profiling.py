@@ -97,3 +97,31 @@ def device_trace(logdir: str):
         yield prof
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_DISPATCH_RANGE = "dispatch_counts"
+
+
+def dispatch_counts(fn) -> tuple[int, int]:
+    """(ATen ops, device activities) of one call of `fn` under
+    `torch.profiler`: the ATen ops `fn` dispatches itself (those directly
+    inside its range, not the ops they call in turn) and the kernels,
+    copies and sets it puts on the card.  The card is synchronised before
+    the profile closes, where there is one."""
+    from torch.autograd import DeviceType
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        with record_function(_DISPATCH_RANGE):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    n_ops = n_dev = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_dev += e.name != _DISPATCH_RANGE   # the range's own device span
+        elif (e.name.startswith("aten::") and e.cpu_parent is not None
+              and e.cpu_parent.name == _DISPATCH_RANGE):
+            n_ops += 1
+    return n_ops, n_dev

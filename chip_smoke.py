@@ -12,7 +12,9 @@ every phase passed):
                card at the tracking path's shapes (768 features, 640x480
                pyramid), with the bounds of the JAX package's kernel gate;
                times each kernel, its plain version and (where one exists) a
-               library call with CUDA events, and computes its bound.
+               library call with CUDA events, and computes its bound; counts
+               the ATen ops and device activities one call of the sampler
+               and of the window ICLK dispatches (at most 4 / 3, exactly 1).
   3b. probe  — probe_patches_kernel variants A-D against their plain version
                (<= 1e-5) and variant A against interp.extract_patches
                (<= 1e-4) at N=2048 on 480x640; kernel, plain and grid_sample
@@ -167,17 +169,24 @@ def kernel_bounds(x, pk):
     out["epi_scan_kernel"] = bound(
         min(box * 4, planes) + n * (64 * 4 + 16 + 4 + 4) + n * 8,
         steps * 64 * 15)
-    # ICLK: patch footprint with the +-2 px start offset
+    # ICLK: patch footprint with the +-2 px start offset.  The window
+    # kernel forms the Hessian and its inverse itself (no hinv read, ~9
+    # flops per template pixel plus the 3x3 inverse) and writes uv, mean
+    # and converged (13 B); align_iclk_kernel reads hinv and writes uv,
+    # mean and step2 (16 B).
     foot = min(n * 13 * 13 * 4, planes)
     for name, window in (("align_iclk_kernel", False),
                          ("align_iclk_window_kernel", True)):
         upd = pk.count_iclk_updates(
-            x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
-            x["uv"] + x["off"], x["valid"], 10, h, w, window)
+            x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], x["init"],
+            x["valid"], 10, h, w, window)
         evals = upd + n                        # + the final probe
-        flops = evals * (64 * 19 + 15) + (n * 64 * 8 if window else 0)
-        ins = n * (3 * 64 * 4 + 36 + 8 + 1 + 4) + (n * 8 if window else 0)
-        outs = n * (4 * 6 if window else 16)
+        flops = evals * (64 * 19 + 15)
+        if window:
+            flops += n * 64 * 8 + n * (64 * 9 + 60)
+            ins, outs = n * (3 * 64 * 4 + 4 + 8 + 1), n * 13
+        else:
+            ins, outs = n * (3 * 64 * 4 + 36 + 8 + 1 + 4), n * 16
         out[name] = bound(foot + ins + outs, flops)
     return out
 
@@ -412,6 +421,7 @@ def main() -> int:
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.tools import microbench_gather, reloc_demo
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
 
     dev = torch.device("cuda")
     # ---- 1. device --------------------------------------------------------
@@ -444,6 +454,28 @@ def main() -> int:
     log(f"grid_sample for sample_patches_kernel: "
         f"{lib_ms['sample_patches_kernel'][0]:.4f} ms, device "
         f"{lib_ms['sample_patches_kernel'][1]} ms [{label}]")
+    # what the two redesigned wrappers dispatch per call on the host
+    dispatch = {
+        "sample_patches_kernel": [
+            ("4x4 on the level-2 substack", 4,
+             lambda: calls["sample_patches_kernel"](True)),
+            ("8x8 with gradients, valid=None", 4,
+             lambda: pk.sample_patches(x["stack"], x["lvl"], x["uv"], 4,
+                                       grad=True))],
+        "align_iclk_window_kernel": [
+            ("8x8, both gates", 3,
+             lambda: calls["align_iclk_window_kernel"](True))],
+    }
+    host_ops = {}
+    for name, cases in dispatch.items():
+        for what, limit, fn in cases:
+            n_ops, n_dev = dispatch_counts(fn)
+            log(f"dispatch {name} ({what}): {n_ops} ATen ops, {n_dev} "
+                f"device activities per call (limit {limit} and 1)")
+            require(n_ops <= limit and n_dev == 1,
+                    f"{name} ({what}) dispatches {n_ops} ATen ops and "
+                    f"{n_dev} device activities per call")
+            host_ops[name] = max(host_ops.get(name, 0), n_ops)
     timing = {}
     for name, fn in calls.items():
         k_ms = time_ms(lambda: fn(True))
@@ -458,6 +490,30 @@ def main() -> int:
             f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
             f"{p_ms:.4f} ms, bound {bounds[name][0]:.5f} ms "
             f"({bounds[name][1]}) [{label}]")
+
+    log(f"sample_patches wrapper {timing['sample_patches_kernel'][0]:.4f} "
+        f"ms vs grid_sample {lib_ms['sample_patches_kernel'][0]:.4f} ms on "
+        f"the same inputs, same run [{label}]")
+    # the ICLK kernels' fixed cost: the same calls with no iteration (the
+    # prologue, the final resample and the gates)
+    fixed = {
+        "align_iclk_kernel": lambda: pk.align_iclk(
+            x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], x["init"],
+            x["valid"], 0, h=x["h"], w=x["w"]),
+        "align_iclk_window_kernel": lambda: pk.align_iclk_mxu(
+            x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], x["init"],
+            x["valid"], 0, h=x["h"], w=x["w"], zmssd_factor=2000.0,
+            min_patch_std=5.0)}
+    for name, fn in fixed.items():
+        d0 = device_ms(fn, name)
+        log(f"time {name} with n_iter=0: device "
+            f"{'n/a' if d0 is None else f'{d0:.4f}'} ms (10 iterations: "
+            f"{timing[name][2]} ms) [{label}]")
+    # gate_inputs makes the ICLK start x["init"] = uv + off once, so the ICLK
+    # timings above hold no elementwise add; this is the size of that add
+    add_ms = time_ms(lambda: x["uv"] + x["off"])
+    log(f"time uv + off (the ICLK start, made outside the timed ICLK "
+        f"calls): {add_ms:.4f} ms [{label}]")
 
     # ---- 3b. probe kernel gate + timings ------------------------------------------
     pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
@@ -666,6 +722,9 @@ def main() -> int:
             "library_ms": lib_ms.get(name, (None, None))[0],
             "library_kernel_ms": lib_ms.get(name, (None, None))[1],
             "card": label})
+        if name in host_ops:
+            kernels[-1].update(host_ops_per_call=host_ops[name],
+                               redesigned_in="PR 3")
     pa = probe["A"]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",

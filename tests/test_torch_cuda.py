@@ -79,3 +79,154 @@ def test_probe_kernel_clamps_off_image(card):
         ref = gp.probe_patches_plain(img, uv, v)
         torch.testing.assert_close(out, ref, atol=1e-6, rtol=0,
                                    equal_nan=True)
+
+
+def _nan0(t):
+    return torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _poison(t):
+    """A copy of (n, 2) coordinates with NaN, +inf and -inf planted."""
+    t = t.clone()
+    t[0::5, 0] = float("nan")
+    t[1::5, 1] = float("inf")
+    t[2::5, 0] = float("-inf")
+    return t
+
+
+def test_nonfinite_uv_read_as_zero(problem):
+    """NaN and +-inf in uv / init_uv give the plain version's answer on
+    nan_to_num'd inputs: the kernels zero them themselves."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    uv = _poison(x["uv"])
+    k = pk.sample_patches(x["stack"], x["lvl"], uv, 4, grad=True)
+    p = pk.sample_patches(x["stack"], x["lvl"], _nan0(uv), 4, grad=True,
+                          use_pallas=False)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        # the same taps; dx and dy only differ by the rounding of uv+off+-1
+        assert float((a - b).abs().max()) <= 1e-3
+    init = _poison(x["init"])
+    bad = ~torch.isfinite(init).all(dim=-1)
+    args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"])
+    uk, ck, _ = pk.align_iclk_mxu(*args, init, x["valid"], 10, h=x["h"],
+                                  w=x["w"])
+    up, cp, _ = pk.align_iclk_mxu(*args, _nan0(init), x["valid"], 10,
+                                  h=x["h"], w=x["w"], use_pallas=False)
+    torch.cuda.synchronize()
+    # a zeroed coordinate leaves the level: both stay put, unconverged
+    assert torch.equal(uk[bad], up[bad]) and torch.equal(uk[bad],
+                                                         _nan0(init)[bad])
+    assert not ck[bad].any() and not cp[bad].any()
+    assert float((ck == cp).float().mean()) >= 0.95
+
+
+def _split_near_median(vals):
+    """A threshold in the widest gap between neighbouring values of the
+    middle fifth, so about half of them fall on each side and none lies
+    within rounding of it."""
+    v = torch.sort(vals[torch.isfinite(vals)]).values
+    k = v.shape[0]
+    lo, hi = int(0.4 * k), int(0.6 * k)
+    j = lo + int(torch.argmax(v[lo + 1:hi + 1] - v[lo:hi]))
+    return float(0.5 * (v[j] + v[j + 1]))
+
+
+def _gate_levels(x):
+    """ZMSSD factor and std floor near the plain version's medians, so each
+    gate rejects about half of the features."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    hinv = pk._iclk_hinv(x["rdx"], x["rdy"])
+    _, _, _, score, std = pk._align_mxu_plain(
+        x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], hinv, x["init"],
+        x["valid"], 10, 4, x["h"], x["w"])
+    return _split_near_median(score) / 64, _split_near_median(std)
+
+
+@pytest.mark.parametrize("gates", ["none", "zmssd", "std", "both"])
+def test_window_gates_match_plain(problem, gates):
+    """align_iclk_mxu with each appearance gate off, on, and both on:
+    `converged` agrees with the plain version on >= 0.95 of features and
+    equals it wherever the two iterates agree to 1e-4."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    zf, sf = _gate_levels(x)
+    kw = {"zmssd_factor": zf if gates in ("zmssd", "both") else None,
+          "min_patch_std": sf if gates in ("std", "both") else None}
+    args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], x["init"],
+            x["valid"], 10)
+    uk, ck, _ = pk.align_iclk_mxu(*args, h=x["h"], w=x["w"], **kw)
+    up, cp, _ = pk.align_iclk_mxu(*args, h=x["h"], w=x["w"],
+                                  use_pallas=False, **kw)
+    torch.cuda.synchronize()
+    assert float((ck == cp).float().mean()) >= 0.95
+    same = (uk - up).abs().max(dim=-1).values <= 1e-4
+    assert int(same.sum()) >= 0.5 * x["lvl"].shape[0]
+    assert torch.equal(ck[same], cp[same])
+    if gates != "none":                    # the gate bites
+        _, c_off, _ = pk.align_iclk_mxu(*args, h=x["h"], w=x["w"])
+        assert int(ck.sum()) < int(c_off.sum())
+
+
+def test_wrappers_refuse_other_types(problem):
+    """An int64 level tensor or a float64 uv raises and is not converted:
+    nothing is launched."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    pk.reset_launch_counts()
+    with pytest.raises(TypeError, match="lvl"):
+        pk.sample_patches(x["stack"], x["lvl"].long(), x["uv"], 4)
+    with pytest.raises(TypeError, match="uv"):
+        pk.sample_patches(x["stack"], x["lvl"], x["uv"].double(), 4)
+    args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"])
+    with pytest.raises(TypeError, match="lvl"):
+        pk.align_iclk_mxu(x["stack"], x["lvl"].long(), *args[2:], x["init"],
+                          x["valid"], 10)
+    with pytest.raises(TypeError, match="init_uv"):
+        pk.align_iclk_mxu(*args, x["init"].double(), x["valid"], 10)
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("case", ["sample_4x4", "sample_8x8_grad",
+                                  "window_gated"])
+def test_wrapper_dispatch_counts(problem, case):
+    """Under torch.profiler one call of the sampler dispatches at most 4
+    ATen ops and one of align_iclk_mxu at most 3, each exactly 1 device
+    kernel."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    x = problem
+    calls = silicon_gate.kernel_calls(x)
+    fn, limit = {
+        "sample_4x4": (lambda: calls["sample_patches_kernel"](True), 4),
+        "sample_8x8_grad": (lambda: pk.sample_patches(
+            x["stack"], x["lvl"], x["uv"], 4, grad=True), 4),
+        "window_gated": (lambda: calls["align_iclk_window_kernel"](True), 3),
+    }[case]
+    fn()                                   # build and warm up
+    n_ops, n_dev = dispatch_counts(fn)
+    assert n_ops <= limit and n_dev == 1, (n_ops, n_dev)
+
+
+def test_window_kernel_reads_strided_templates(problem):
+    """patch_gradients' interior view is read through its strides, uv too:
+    the same answer as contiguous copies."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    n = x["lvl"].shape[0]
+    pb = torch.zeros((n, 10, 10), device=x["ref"].device)
+    pb[:, 1:-1, 1:-1] = x["ref"]
+    T = pb[:, 1:-1, 1:-1]
+    assert not T.is_contiguous()
+    init = torch.stack([x["init"][:, 0], torch.zeros_like(x["init"][:, 0]),
+                        x["init"][:, 1]], dim=-1)[:, ::2]
+    assert init.stride() == (3, 2)
+    a = pk.align_iclk_mxu(x["stack"], x["lvl"], T, x["rdx"], x["rdy"], init,
+                          x["valid"], 10)
+    b = pk.align_iclk_mxu(x["stack"], x["lvl"], x["ref"], x["rdx"],
+                          x["rdy"], x["init"], x["valid"], 10)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

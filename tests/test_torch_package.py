@@ -5,9 +5,11 @@ converts losslessly, and the trace monitor writes the JAX monitor's
 records."""
 
 import ast
+import ctypes
 import dataclasses
 import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -245,3 +247,56 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert any("matmul" in e.key for e in prof.key_averages())
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+_C_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+            ctypes.c_longlong: "long long", ctypes.c_float: "float"}
+
+
+def _launcher_params():
+    """name -> the kind of each parameter of every extern "C" launcher
+    defined in the port's CUDA sources."""
+    found = {}
+    for src in sorted((ROOT / "android_svo_tpu_torch" / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r"\bint\s+(launch_\w+)\s*\(([^)]*)\)\s*\{",
+                             text):
+            assert 'extern "C"' in text[:m.start()], m.group(1)
+            kinds = []
+            for prm in m.group(2).split(","):
+                prm = " ".join(prm.split())
+                if "*" in prm:
+                    kinds.append("pointer")
+                elif prm.startswith("long long "):
+                    kinds.append("long long")
+                elif prm.startswith(("int ", "float ")):
+                    kinds.append(prm.split()[0])
+                else:
+                    raise AssertionError(f"{m.group(1)}: parameter {prm!r}")
+            assert m.group(1) not in found, m.group(1)
+            found[m.group(1)] = kinds
+    return found
+
+
+def test_launcher_signatures_match_bindings():
+    """Every launcher's C parameters against the ctypes argtypes bound to
+    it: the same names, count and pointer / int / long long / float kind
+    at each position.  A mismatch passes every CPU test and, on the card,
+    cuts a pointer to 32 bits or shifts the arguments."""
+    from android_svo_tpu_torch.ops.cuda_build import _SIGNATURES
+    params = _launcher_params()
+    assert set(params) == set(_SIGNATURES)
+    for name, argtypes in _SIGNATURES.items():
+        assert [_C_KINDS[a] for a in argtypes] == params[name], name
+
+
+def test_dispatch_counts_counts_top_level_ops():
+    """`dispatch_counts` counts the ATen ops a call dispatches itself, not
+    those they call in turn (`unbind` selects each slice)."""
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    x = torch.ones(4)
+    assert dispatch_counts(lambda: (x.data_ptr(), x.stride(), x.shape)) \
+        == (0, 0)
+    assert dispatch_counts(lambda: torch.empty(3)) == (1, 0)
+    assert dispatch_counts(
+        lambda: torch.empty((3, 2, 4, 4)).unbind(0)) == (2, 0)

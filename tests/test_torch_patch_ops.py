@@ -19,6 +19,7 @@ from android_svo_tpu.data import synthetic as jsyn
 from android_svo_tpu.ops import patch_pallas as pp
 from android_svo_tpu.ops.pyramid import build_stack
 
+from android_svo_tpu_torch.ops import interp
 from android_svo_tpu_torch.ops import patch_kernels as pk
 
 # The tensors here are small and the suite's workers share the machine's
@@ -214,6 +215,55 @@ class TestAlignWindow:
         err = np.linalg.norm(up.numpy() - x["uv"], axis=-1)[cp.numpy()]
         assert np.median(err) <= 0.5
 
+    def test_window_is_a_predicate(self, stack, problem, monkeypatch):
+        """At every ICLK iterate where `inb` holds, every tap of the patch
+        and its bilinear neighbour lie inside the 32x64 window, and the
+        one-hot window sample equals the stack's bilinear sample at the
+        window origin plus the window coordinates: the premise that lets
+        the kernel read the stack in place of a staged window.  The
+        iterates are those of `_align_mxu_plain`; both samples are taken
+        in float64 at them, so rounding cannot hide a misplaced tap."""
+        x = problem
+        seen = []
+        onehot = pk._onehot_patch
+
+        def record(wins, u, v, p):
+            seen.append((u.double(), v.double()))
+            return onehot(wins, u, v, p)
+
+        monkeypatch.setattr(pk, "_onehot_patch", record)
+        st, lvl, valid = t(stack), t(x["lvl"]), t(x["valid"])
+        init = t(x["uv"] + x["off"])
+        pk.align_iclk_mxu(st, lvl, t(x["ref"]), t(x["dx"]), t(x["dy"]),
+                          init, valid, 10, h=H, w=W)
+        assert len(seen) == 11                 # 10 iterations + resample
+        p = x["ref"].shape[1]
+        half = p // 2
+        wins, org = pk.dump_windows_plain(st, lvl, init, valid)
+        wins, org, st = wins.double(), org.double(), st.double()
+        wl = (W >> lvl.long()).double()
+        hl = (H >> lvl.long()).double()
+        m, wb = half + 1.0, half + 2.0
+        offs = interp.patch_offsets(half, torch.float64)
+        n_checked = 0
+        for uw, vw in seen:
+            u, v = uw + org[:, 0], vw + org[:, 1]
+            inb = (valid & (u >= m) & (u < wl - 1 - m) & (v >= m)
+                   & (v < hl - 1 - m) & (uw >= wb)
+                   & (uw < pk.DUMP_WC - 1 - wb) & (vw >= wb)
+                   & (vw < pk.DUMP_WR - 1 - wb))
+            tap = torch.stack([uw, vw], -1)[:, None, :] + offs[None]
+            lo = torch.floor(tap)
+            assert (lo[inb] >= 0).all()
+            assert (lo[inb][..., 0] + 1 <= pk.DUMP_WC - 1).all()
+            assert (lo[inb][..., 1] + 1 <= pk.DUMP_WR - 1).all()
+            a = onehot(wins, uw, vw, p).reshape(N, -1)
+            b = interp.bilinear_sample_stack(st, lvl, org[:, None, :] + tap)
+            np.testing.assert_allclose(a[inb].numpy(), b[inb].numpy(),
+                                       atol=1e-5, rtol=0)
+            n_checked += int(inb.sum())
+        assert n_checked >= 2 * int(x["valid"].sum())
+
     def test_flat_stack_rejected_by_gate(self, stack, problem):
         x = problem
         flat = torch.full_like(t(stack), 100.0)
@@ -229,6 +279,53 @@ class TestDispatch:
         pk.reset_launch_counts()
         x = problem
         pk.sample_patches(t(stack), t(x["lvl"]), t(x["uv"]), 4)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["lvl_int64", "uv_float64",
+                                     "valid_uint8", "uv_shape",
+                                     "lvl_strided"])
+    def test_sampler_checks_before_launch(self, stack, problem, bad):
+        """The CUDA path converts nothing: another type, shape or layout
+        raises before any allocation or launch (its checks run here)."""
+        x = problem
+        lvl, uv, valid = t(x["lvl"]), t(x["uv"]), t(x["valid"])
+        if bad == "lvl_int64":
+            lvl = lvl.long()
+        elif bad == "uv_float64":
+            uv = uv.double()
+        elif bad == "valid_uint8":
+            valid = valid.to(torch.uint8)
+        elif bad == "uv_shape":
+            uv = uv[:-1]
+        else:
+            lvl = torch.stack([lvl, lvl], -1)[:, 0]
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64", "uint8")) \
+            else ValueError
+        with pytest.raises(err):
+            pk._sample_kernel(t(stack), lvl, uv, 2, True, valid)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["init_float64", "valid_none",
+                                     "gx_transposed", "patch_too_big"])
+    def test_window_checks_before_launch(self, stack, problem, bad):
+        x = problem
+        args = dict(T=t(x["ref"]), gx=t(x["dx"]), gy=t(x["dy"]),
+                    uv0=t(x["uv"] + x["off"]), valid=t(x["valid"]))
+        if bad == "init_float64":
+            args["uv0"] = args["uv0"].double()
+        elif bad == "valid_none":
+            args["valid"] = None
+        elif bad == "gx_transposed":
+            args["gx"] = args["gx"].transpose(1, 2)
+        else:
+            args = {k: (torch.zeros((N, 12, 12)) if k in "T gx gy" else v)
+                    for k, v in args.items()}
+        pk.reset_launch_counts()
+        with pytest.raises((TypeError, ValueError)):
+            pk._align_window_kernel(t(stack), t(x["lvl"]), n_iter=10, h=H,
+                                    w=W, zmssd_factor=None,
+                                    min_patch_std=None, **args)
         assert all(v == 0 for v in pk.LAUNCHES.values())
 
     def test_update_count_bounded(self, stack, problem):
