@@ -17,10 +17,12 @@
 // latency: launch overhead and, inside, the dependent chain of iterations of
 // each feature.  The designs below therefore keep every iteration of a
 // feature inside one warp (no per-iteration launch, no host sync), keep
-// per-feature state in registers, and read the stack through L2.  Around
-// a launch of a few microseconds the wrapper's own tensor ops cost more than
-// the kernel, so the redesigned sampler and window ICLK also take over their
-// wrappers' conversions and arithmetic (see each kernel's note).
+// per-feature state in registers, and read the stack through L2; the
+// epipolar scan, whose steps are independent, spreads each seed's steps
+// over the warps of a block.  Around a launch of a few microseconds the
+// wrapper's own tensor ops cost more than the kernel, so every kernel also
+// takes over its wrapper's conversions and arithmetic (see each kernel's
+// note): a wrapper allocates its outputs and launches once.
 //
 // Plain C interface (route (b) of the build: nvcc -shared, bound with ctypes).
 // Every launcher returns the cudaError_t of the launch; the caller raises.
@@ -33,7 +35,6 @@ namespace {
 constexpr float kMinUpdateSquared = 0.03f * 0.03f;   // feature_alignment.cpp:276
 constexpr int kWinRows = 32;                          // DUMP_WR
 constexpr int kWinCols = 64;                          // DUMP_WC
-constexpr int kMaxPerLane = 4;                        // patch area <= 128
 
 __device__ __forceinline__ void floor_index(float xf, int n, int* i0, int* i1) {
   float c = isnan(xf) ? 0.0f : fminf(fmaxf(xf, -1.0f), (float)n);
@@ -63,6 +64,16 @@ __device__ __forceinline__ float bilin(const float* __restrict__ img,
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sums of M values over the warp, the M butterflies interleaved.
+template <int M>
+__device__ __forceinline__ void warp_sum_n(float (&v)[M]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < M; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+  }
 }
 
 __device__ __forceinline__ int norm_level(int l, int L) {
@@ -145,168 +156,170 @@ __global__ void sample_patches_kernel(
 
 // ---------------------------------------------------------------------------
 // epi_scan_kernel — replaces _scan_pallas / _make_scan_kernel
-// (patch_pallas.py:253-345).
-// Bound: latency.  The work a seed needs is k (<= 100) dependent 8x8 samples
-// and two reductions each; the bytes are the inputs (~0.3 MB at B = 768) and
-// 6 KB of output.  Design: one warp per seed, two patch pixels per lane, the
-// zero-mean reference held in registers, warp-shuffle reductions for the
-// mean and the ZMSSD, and a strict-< running best so the first minimum wins
-// as in the plain version's argmin.  Seeds with 0 steps exit at once, so the
-// dead part of the compacted batch costs one warp slot each.
+// (patch_pallas.py:253-345) together with the rest of epi_scan
+// (patch_pallas.py:382-414): the reference's mean-centering and the
+// NaN-zeroing of the segment ends.
+// Bound: operations, and those only nominally: the in-bounds steps' 8x8
+// bilinear samples and two reductions each are a few tens of MFLOP at 768
+// seeds (well under a microsecond of fp32 time), the inputs and the pixels
+// the segments touch a megabyte or two.  What a sequential scan pays is
+// the chain: one warp walking up to 100 steps, each a round trip to memory
+// and ten dependent shuffles.  The steps do not depend on each other (the
+// loop is only a running argmin), so:
+// - one block per seed; its warps split the steps, each keeping a strict-<
+//   running best (score, j) over its steps in increasing order, so the
+//   chain a warp walks is k / nw steps long and the block's warps overlap
+//   their round trips.  Each warp scores two steps (j and j + nw) at once,
+//   their loads and shuffle reductions interleaved, which halves the chain
+//   again;
+// - lanes hold K patch pixels each, with the zero-mean reference in
+//   registers: every warp loads the reference through its strides and
+//   centres it with the same shuffle sum, so all warps hold the same
+//   values; a step outside the level's margin is never better than +inf
+//   and is not sampled.  Inside the margin every tap lies inside the plane,
+//   so the taps skip bilin's clamps (the identity there) and index with
+//   32 bits: the same values, and 15.0 us against bilin's 18.5 on an H100;
+// - a block reduction in shared memory takes the smaller score and, on
+//   equal scores, the smaller j: the first minimum, as the sequential
+//   strict < and the plain version's argmin.  Every warp starts from
+//   (+inf, 0), so a seed with no in-bounds position gives (0, +inf);
+// - a seed's taps lie along one short segment (consecutive positions about
+//   0.7 px apart at the search level), so the block's reads of the
+//   L2-resident stack hit one SM's L1;
+// - seeds with 0 steps (most of the compacted batch in steady state) exit
+//   the block at once; a null `n_steps` means n_steps_max for every seed;
+//   the segment ends are read through their strides, NaN and +-inf as 0.
 // ---------------------------------------------------------------------------
-__global__ void epi_scan_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r,
-    int L, int H, int W, int h_true, int w_true,
-    const int* __restrict__ lvl, const float* __restrict__ uv_a,
-    const float* __restrict__ uv_b, const int* __restrict__ n_steps,
-    const float* __restrict__ ref_zm, int n, int n_steps_max, int half,
-    float* __restrict__ out_t, float* __restrict__ out_s) {
+constexpr int kScanWarps = 8;   // warps per seed; 4 ran slower on an H100
+
+// bilin for a tap inside the plane: the same value without the clamps.
+__device__ __forceinline__ float bilin_inside(const float* __restrict__ img,
+                                              int s_r, float x, float y) {
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float wx = x - x0f, wy = y - y0f;
+  const float* row0 = img + ((int)y0f * s_r + (int)x0f);
+  const float* row1 = row0 + s_r;
+  const float v00 = __ldg(row0), v01 = __ldg(row0 + 1);
+  const float v10 = __ldg(row1), v11 = __ldg(row1 + 1);
+  return (1.0f - wy) * ((1.0f - wx) * v00 + wx * v01)
+       + wy * ((1.0f - wx) * v10 + wx * v11);
+}
+
+template <int HALF>
+__global__ void __launch_bounds__(32 * kScanWarps) epi_scan_kernel(
+    const float* __restrict__ stack, long long s_l, long long s_r64,
+    int L, int h_true, int w_true, const int* __restrict__ lvl,
+    const float* __restrict__ uv_a, long long s_an, long long s_ac,
+    const float* __restrict__ uv_b, long long s_bn, long long s_bc,
+    const int* __restrict__ n_steps,
+    const float* __restrict__ ref, long long s_rn, long long s_rr,
+    int n_steps_max, float* __restrict__ out_t, float* __restrict__ out_s) {
+  constexpr int P = 2 * HALF;
+  constexpr int AREA = P * P;
+  constexpr int K = (AREA + 31) / 32;      // patch pixels per lane
+  __shared__ float warp_s[kScanWarps];
+  __shared__ int warp_j[kScanWarps];
+  const long long i = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const int i = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (i >= n) return;
-  const int p = 2 * half;
-  const int area = p * p;
+  const int warp = threadIdx.x >> 5;
+  constexpr int nw = kScanWarps;
+  const int k = min(max(n_steps == nullptr ? n_steps_max : n_steps[i], 0),
+                    n_steps_max);
+  if (k == 0) {                            // uniform across the block
+    if (threadIdx.x == 0) { out_t[i] = 0.0f; out_s[i] = INFINITY; }
+    return;
+  }
   const int l = norm_level(lvl[i], L);
   const float* img = stack + (long long)l * s_l;
-  const int k = min(max(n_steps[i], 0), n_steps_max);
+  const int s_r = (int)s_r64;
   const float wl = (float)(w_true >> l), hl = (float)(h_true >> l);
-  const float m = (float)half + 2.0f;
-  const float ax = uv_a[2 * i], ay = uv_a[2 * i + 1];
-  const float bx = uv_b[2 * i], by = uv_b[2 * i + 1];
-  float ref[kMaxPerLane];
-  float offx[kMaxPerLane], offy[kMaxPerLane];
+  const float m = (float)HALF + 2.0f;
+  const float ax = finite_or_zero(uv_a[i * s_an]);
+  const float ay = finite_or_zero(uv_a[i * s_an + s_ac]);
+  const float bx = finite_or_zero(uv_b[i * s_bn]);
+  const float by = finite_or_zero(uv_b[i * s_bn + s_bc]);
+  float rz[K], offx[K], offy[K];
+  float rsum = 0.0f;
 #pragma unroll
-  for (int q = 0; q < kMaxPerLane; ++q) {
-    int pix = lane + 32 * q;
-    bool on = pix < area;
-    ref[q] = on ? ref_zm[(long long)i * area + pix] : 0.0f;
-    offx[q] = (float)(pix % p - half);
-    offy[q] = (float)(pix / p - half);
+  for (int q = 0; q < K; ++q) {
+    const int pix = lane + 32 * q;
+    const int r = pix / P, c = pix % P;
+    rz[q] = pix < AREA ? ref[i * s_rn + r * s_rr + c] : 0.0f;
+    rsum += rz[q];
+    offx[q] = (float)(c - HALF);
+    offy[q] = (float)(r - HALF);
   }
+  const float rmean = warp_sum(rsum) / (float)AREA;
+#pragma unroll
+  for (int q = 0; q < K; ++q) rz[q] -= rmean;
   const float denom = (float)max(k - 1, 1);
-  float best_t = 0.0f, best_s = INFINITY;
-  for (int j = 0; j < k; ++j) {
-    float t = fminf((float)j / denom, 1.0f);
-    float x = ax * (1.0f - t) + bx * t;
-    float y = ay * (1.0f - t) + by * t;
-    float cur[kMaxPerLane];
-    float s = 0.0f;
+  float best_s = INFINITY;
+  int best_j = 0;
+  for (int j = warp; j < k; j += 2 * nw) {
+    const int js[2] = {j, j + nw};
+    float x[2], y[2];
+    bool live[2];
 #pragma unroll
-    for (int q = 0; q < kMaxPerLane; ++q) {
-      bool on = lane + 32 * q < area;
-      cur[q] = on ? bilin(img, s_r, H, W, x + offx[q], y + offy[q]) : 0.0f;
-      s += cur[q];
+    for (int s = 0; s < 2; ++s) {
+      const float t = fminf((float)js[s] / denom, 1.0f);
+      x[s] = ax * (1.0f - t) + bx * t;
+      y[s] = ay * (1.0f - t) + by * t;
+      live[s] = js[s] < k && (x[s] >= m) && (x[s] < wl - 1.0f - m)
+             && (y[s] >= m) && (y[s] < hl - 1.0f - m);
     }
-    const float mean = warp_sum(s) / (float)area;
-    float d2 = 0.0f;
+    if (!live[0] && !live[1]) continue;    // uniform across the warp
+    float cur[2][K];
+    float mean[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int q = 0; q < kMaxPerLane; ++q) {
-      if (lane + 32 * q < area) {
-        float d = (cur[q] - mean) - ref[q];
-        d2 += d * d;
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        cur[s][q] = live[s] && lane + 32 * q < AREA
+            ? bilin_inside(img, s_r, x[s] + offx[q], y[s] + offy[q]) : 0.0f;
+        mean[s] += cur[s][q];
       }
     }
-    float score = warp_sum(d2);
-    bool inb = (x >= m) && (x < wl - 1.0f - m) && (y >= m) && (y < hl - 1.0f - m);
-    score = inb ? score : INFINITY;
-    if (score < best_s) { best_s = score; best_t = t; }
+    warp_sum_n(mean);
+    float d2[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mean[s] = mean[s] / (float)AREA;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        if (lane + 32 * q < AREA) {
+          const float d = (cur[s][q] - mean[s]) - rz[q];
+          d2[s] += d * d;
+        }
+      }
+    }
+    warp_sum_n(d2);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (live[s] && d2[s] < best_s) { best_s = d2[s]; best_j = js[s]; }
+    }
   }
-  if (lane == 0) { out_t[i] = best_t; out_s[i] = best_s; }
+  if (lane == 0) { warp_s[warp] = best_s; warp_j[warp] = best_j; }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float bs = warp_s[0];
+    int bj = warp_j[0];
+    for (int w = 1; w < nw; ++w) {
+      const float s = warp_s[w];
+      const int j = warp_j[w];
+      if (s < bs || (s == bs && j < bj)) { bs = s; bj = j; }
+    }
+    out_t[i] = fminf((float)bj / denom, 1.0f);
+    out_s[i] = bs;
+  }
 }
 
 // ---------------------------------------------------------------------------
+// The two ICLK kernels: one per-feature body, `iclk_feature`, two entries.
+//
 // align_iclk_kernel — replaces _align_pallas / _make_align_kernel
-// (patch_pallas.py:422-557).
-// Bound: latency.  Per feature, <= 10 dependent iterations of one 8x8
-// bilinear sample, three sums and a 3x3 product; inputs ~0.6 MB at B = 768.
-// Design: one warp per feature, hinv in registers, the template and its
-// gradients two pixels per lane in registers, samples straight from the
-// L2-resident stack, three shuffle reductions per iteration.  A feature
-// breaks out as soon as its step is below 0.03 px or it leaves the level
-// (the plain version's per-feature freeze), then runs the final step probe.
-// ---------------------------------------------------------------------------
-__global__ void align_iclk_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r,
-    int L, int H, int W, int h_true, int w_true,
-    const int* __restrict__ lvl, const float* __restrict__ T,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ hinv, const float* __restrict__ uv0,
-    const unsigned char* __restrict__ valid, int n, int n_iter, int half,
-    float* __restrict__ out_uv, float* __restrict__ out_mean,
-    float* __restrict__ out_step2) {
-  const int lane = threadIdx.x & 31;
-  const int i = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (i >= n) return;
-  const int p = 2 * half;
-  const int area = p * p;
-  const int l = min(max(lvl[i], 0), L - 1);
-  const float* img = stack + (long long)l * s_l;
-  const float wl = (float)(w_true >> l), hl = (float)(h_true >> l);
-  const float m = (float)half + 1.0f;
-  const bool ok0 = valid[i] != 0;
-  float hv[9];
-#pragma unroll
-  for (int e = 0; e < 9; ++e) hv[e] = hinv[(long long)i * 9 + e];
-  float t[kMaxPerLane], dx[kMaxPerLane], dy[kMaxPerLane];
-  float offx[kMaxPerLane], offy[kMaxPerLane];
-#pragma unroll
-  for (int q = 0; q < kMaxPerLane; ++q) {
-    int pix = lane + 32 * q;
-    bool on = pix < area;
-    long long o = (long long)i * area + pix;
-    t[q] = on ? T[o] : 0.0f;
-    dx[q] = on ? gx[o] : 0.0f;
-    dy[q] = on ? gy[o] : 0.0f;
-    offx[q] = (float)(pix % p - half);
-    offy[q] = (float)(pix / p - half);
-  }
-  float u = uv0[2 * i], v = uv0[2 * i + 1], mean = 0.0f;
-  auto inb = [&](float a, float b) {
-    return (a >= m) && (a < wl - 1.0f - m) && (b >= m) && (b < hl - 1.0f - m);
-  };
-  auto update = [&](float* u0, float* u1, float* u2) {
-    float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kMaxPerLane; ++q) {
-      if (lane + 32 * q < area) {
-        float r = bilin(img, s_r, H, W, u + offx[q], v + offy[q]) - t[q] + mean;
-        g0 += dx[q] * r;
-        g1 += dy[q] * r;
-        g2 += r;
-      }
-    }
-    g0 = warp_sum(g0);
-    g1 = warp_sum(g1);
-    g2 = warp_sum(g2);
-    *u0 = hv[0] * g0 + hv[1] * g1 + hv[2] * g2;
-    *u1 = hv[3] * g0 + hv[4] * g1 + hv[5] * g2;
-    *u2 = hv[6] * g0 + hv[7] * g1 + hv[8] * g2;
-  };
-  for (int it = 0; it < n_iter; ++it) {
-    if (!(ok0 && inb(u, v))) break;
-    float u0, u1, u2;
-    update(&u0, &u1, &u2);
-    u -= u0;
-    v -= u1;
-    mean -= u2;
-    float step2 = u0 * u0 + u1 * u1;
-    if (!inb(u, v) || step2 < kMinUpdateSquared) break;
-  }
-  float step2 = INFINITY;
-  if (ok0 && inb(u, v)) {                  // final step-size probe
-    float u0, u1, u2;
-    update(&u0, &u1, &u2);
-    step2 = u0 * u0 + u1 * u1;
-  }
-  if (lane == 0) {
-    out_uv[2 * i] = u;
-    out_uv[2 * i + 1] = v;
-    out_mean[i] = mean;
-    out_step2[i] = step2;
-  }
-}
-
-// ---------------------------------------------------------------------------
+// (patch_pallas.py:422-557) together with the rest of align_iclk
+// (patch_pallas.py:610-649): its Hessian and inverse, the NaN-zeroing of
+// the start and the convergence test.
 // align_iclk_window_kernel — replaces _dump_pallas / _make_dump_kernel
 // (patch_pallas.py:667-717) together with the whole of align_iclk_mxu
 // (patch_pallas.py:779-874): its Hessian and inverse, the window origin, the
@@ -314,45 +327,41 @@ __global__ void align_iclk_kernel(
 // Bound: latency.  The bytes are the templates and gradients (768 B per 8x8
 // feature) and the pixels the iterations touch; the work is <= 11 dependent
 // 8x8 samples per feature.  The caller pays for the host work around the
-// launch, so the kernel takes the whole function and the wrapper only
+// launch, so each kernel takes its whole function and the wrapper only
 // allocates the three outputs:
 // - H = J^T J + 1e-6 I over (gx, gy, 1) and its inverse by the explicit
 //   Cholesky with pivot floor 1e-20 of geometry/linsolve.py (same order of
 //   operations), so near-singular features fail as in the plain version;
 //   lanes 0-2 solve the inverse's three columns at once;
 // - T, gx and gy are read through their strides (the caller's strided
-//   interior view of patch_gradients is not copied), init_uv too, with NaN
-//   and +-inf set to 0;
-// - the 32x64 window of dump_windows is a predicate, not a copy: while `inb`
-//   holds (win_ok, patch_pallas.py:821-824) every tap of an 8x8 patch and
-//   its bilinear neighbour lie at window columns 2..60 and rows 2..28,
-//   inside the window and away from its clamps, so `win_read` takes the
-//   staged window's pixel straight from the L2-resident stack.  It applies
-//   the window's clamps all the same, so every read, the final resample of
-//   a feature that left the window included, returns exactly the pixel the
-//   staged copy held;
-// - one warp per feature, as align_iclk_kernel: template and gradients in
-//   registers (K pixels per lane), one fused shuffle reduction of the three
-//   sums per iteration, no __syncthreads.  The first sample is taken with
-//   the template loads and reduced with the Hessian sums, so the prologue
+//   interior view of patch_gradients is not copied), init_uv too; the
+//   iterations start from init_uv with NaN and +-inf set to 0;
+// - `converged` = step^2 < 4 * 0.03^2 at the final probe and a drift under
+//   one patch side.  align_iclk measures the drift from the raw init_uv
+//   (patch_pallas.py:647), so a non-finite start never converges;
+//   align_iclk_mxu from the zeroed one;
+// - one warp per feature: template and gradients in registers (K pixels
+//   per lane), one fused shuffle reduction of the three sums per
+//   iteration, no __syncthreads.  The first sample is taken with the
+//   template loads and reduced with the Hessian sums, so the prologue
 //   costs one memory round trip and one reduction;
-// - the TPU's one-hot matmul schedule was shaped for its matrix unit and
-//   computes the same bilinear sample.
+// - align_iclk_kernel samples the stack with the plain version's clamps;
+// - the window kernel's 32x64 window of dump_windows is a predicate, not a
+//   copy: while `inb` holds (win_ok, patch_pallas.py:821-824) every tap of
+//   an 8x8 patch and its bilinear neighbour lie at window columns 2..60
+//   and rows 2..28, inside the window and away from its clamps, so
+//   `win_read` takes the staged window's pixel straight from the
+//   L2-resident stack.  It applies the window's clamps all the same, so
+//   every read, the final resample of a feature that left the window
+//   included, returns exactly the pixel the staged copy held; the TPU's
+//   one-hot matmul schedule was shaped for its matrix unit and computes
+//   the same bilinear sample.
 // Each gate is on only when the caller gives it (a flag each), as JAX skips
 // a gate that is None.  Dead slots return the (NaN-zeroed) initial position,
-// mean 0, not converged — what the plain version returns for them.
+// mean 0, not converged — what the plain versions return for them.
 // ---------------------------------------------------------------------------
 constexpr float kPivotFloor = 1e-20f;                 // linsolve._PIVOT_FLOOR
 constexpr float kConvStep2 = 4.0f * kMinUpdateSquared;
-
-template <int M>
-__device__ __forceinline__ void warp_sum_n(float (&v)[M]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < M; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
-  }
-}
 
 // geometry/linsolve.py's inv_spd for a 3x3 SPD matrix, in two parts: the
 // unrolled Cholesky with the pivot clamped to kPivotFloor (NaN passes
@@ -416,54 +425,71 @@ __device__ __forceinline__ float win_read(const float* __restrict__ img,
        + wy * ((1.0f - wx) * v10 + wx * v11);
 }
 
-template <int K>                           // patch pixels per lane
-__global__ void align_iclk_window_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r,
-    int L, int H, int W, int h_true, int w_true,
-    const int* __restrict__ lvl,
-    const float* __restrict__ T, long long s_tn, long long s_tr,
-    const float* __restrict__ gx, long long s_xn, long long s_xr,
-    const float* __restrict__ gy, long long s_yn, long long s_yr,
-    const float* __restrict__ uv0, long long s_un, long long s_uc,
-    const unsigned char* __restrict__ valid, int n, int n_iter, int half,
-    int zmssd_on, float zmssd_max, int std_on, float std_min,
-    float* __restrict__ out_uv, unsigned char* __restrict__ out_conv,
-    float* __restrict__ out_mean) {
+// The launch arguments of both ICLK kernels (the gates are off for
+// align_iclk_kernel).
+struct IclkArgs {
+  const float* stack; long long s_l, s_r; int L, H, W, h_true, w_true;
+  const int* lvl;
+  const float* T; long long s_tn, s_tr;
+  const float* gx; long long s_xn, s_xr;
+  const float* gy; long long s_yn, s_yr;
+  const float* uv0; long long s_un, s_uc;
+  const unsigned char* valid; int n, n_iter, half;
+  int zmssd_on; float zmssd_max; int std_on; float std_min;
+  float* out_uv; unsigned char* out_conv; float* out_mean;
+};
+
+template <int K, bool kWindow>             // patch pixels per lane
+__device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
   const int lane = threadIdx.x & 31;
-  const int i = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (i >= n) return;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (i >= a.n) return;
+  const int half = a.half;
   const int p = 2 * half;
   const int area = p * p;
-  const float u_init = finite_or_zero(uv0[i * s_un]);
-  const float v_init = finite_or_zero(uv0[i * s_un + s_uc]);
-  if (!valid[i]) {
+  const float u_raw = __ldg(a.uv0 + i * a.s_un);
+  const float v_raw = __ldg(a.uv0 + i * a.s_un + a.s_uc);
+  const float u_init = finite_or_zero(u_raw);
+  const float v_init = finite_or_zero(v_raw);
+  if (!a.valid[i]) {
     if (lane == 0) {
-      out_uv[2 * i] = u_init;
-      out_uv[2 * i + 1] = v_init;
-      out_conv[i] = 0;
-      out_mean[i] = 0.0f;
+      a.out_uv[2 * i] = u_init;
+      a.out_uv[2 * i + 1] = v_init;
+      a.out_conv[i] = 0;
+      a.out_mean[i] = 0.0f;
     }
     return;
   }
-  const int l = min(max(lvl[i], 0), L - 1);
-  const float* img = stack + (long long)l * s_l;
-  // dump_windows' origin: floor(uv) - (32, 16), clamped so the crop fits
-  // the padded plane; then the slice start as dynamic_slice clamps it
-  const int ox = min(max((int)floorf(u_init) - kWinCols / 2, 0),
-                     W - (kWinCols + 1));
-  const int oy = min(max((int)floorf(v_init) - kWinRows / 2, 0),
-                     H - (kWinRows + 1));
-  const int sx = min(max(ox, 0), max(W - kWinCols, 0));
-  const int sy = min(max(oy, 0), max(H - kWinRows, 0));
-  const float orgx = (float)ox, orgy = (float)oy;
-
-  const float wl = (float)(w_true >> l), hl = (float)(h_true >> l);
+  const int H = a.H, W = a.W;
+  const long long s_r = a.s_r;
+  const int l = min(max(a.lvl[i], 0), a.L - 1);
+  const float* __restrict__ img = a.stack + (long long)l * a.s_l;
+  // the window kernel's origin (dump_windows: floor(uv) - (32, 16), clamped
+  // so the crop fits the padded plane; then the slice start as
+  // dynamic_slice clamps it); align_iclk_kernel samples plane coordinates
+  int sx = 0, sy = 0;
+  float orgx = 0.0f, orgy = 0.0f;
+  if (kWindow) {
+    const int ox = min(max((int)floorf(u_init) - kWinCols / 2, 0),
+                       W - (kWinCols + 1));
+    const int oy = min(max((int)floorf(v_init) - kWinRows / 2, 0),
+                       H - (kWinRows + 1));
+    sx = min(max(ox, 0), max(W - kWinCols, 0));
+    sy = min(max(oy, 0), max(H - kWinRows, 0));
+    orgx = (float)ox;
+    orgy = (float)oy;
+  }
+  const float wl = (float)(a.w_true >> l), hl = (float)(a.h_true >> l);
   const float m = (float)half + 1.0f;
   const float wb = (float)half + 2.0f;
-  auto inb = [&](float a, float b) {
-    bool lvl_ok = (a >= m) && (a < wl - 1.0f - m) && (b >= m) && (b < hl - 1.0f - m);
-    bool win_ok = (a - orgx >= wb) && (a - orgx < kWinCols - 1.0f - wb)
-               && (b - orgy >= wb) && (b - orgy < kWinRows - 1.0f - wb);
+  // two predicates, then combined: one && chain over all eight tests
+  // compiles to branches inside the iteration loop
+  auto inb = [&](float x, float y) {
+    const bool lvl_ok =
+        (x >= m) && (x < wl - 1.0f - m) && (y >= m) && (y < hl - 1.0f - m);
+    if (!kWindow) return lvl_ok;
+    const bool win_ok = (x - orgx >= wb) && (x - orgx < kWinCols - 1.0f - wb)
+                     && (y - orgy >= wb) && (y - orgy < kWinRows - 1.0f - wb);
     return lvl_ok && win_ok;
   };
   float u = u_init, v = v_init, mean = 0.0f;
@@ -476,7 +502,9 @@ __global__ void align_iclk_window_kernel(
     for (int q = 0; q < K; ++q) {
       cur[q] = 0.0f;
       if (lane + 32 * q < area) {
-        cur[q] = win_read(img, s_r, H, W, sx, sy, cu + offx[q], cv + offy[q]);
+        const float x = cu + offx[q], y = cv + offy[q];
+        cur[q] = kWindow ? win_read(img, s_r, H, W, sx, sy, x, y)
+                         : bilin(img, s_r, H, W, x, y);
         const float r = cur[q] - t[q] + mean;
         g[0] += dx[q] * r;
         g[1] += dy[q] * r;
@@ -487,16 +515,19 @@ __global__ void align_iclk_window_kernel(
   // The template loads and the first sample (the first iteration's, or the
   // final resample's when the loop does not run) share one memory round
   // trip and one reduction with the Hessian sums (gx^2, gx gy, gx, gy^2,
-  // gy) and the template's sum.
-  float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  // gy) and, for the gates, the template's sum.
+  constexpr int kAcc = kWindow ? 9 : 8;
+  float acc[kAcc];
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int pix = lane + 32 * q;
     const bool on = pix < area;
     const int r = pix / p, c = pix % p;
-    t[q] = on ? T[i * s_tn + r * s_tr + c] : 0.0f;
-    dx[q] = on ? gx[i * s_xn + r * s_xr + c] : 0.0f;
-    dy[q] = on ? gy[i * s_yn + r * s_yr + c] : 0.0f;
+    t[q] = on ? __ldg(a.T + i * a.s_tn + r * a.s_tr + c) : 0.0f;
+    dx[q] = on ? __ldg(a.gx + i * a.s_xn + r * a.s_xr + c) : 0.0f;
+    dy[q] = on ? __ldg(a.gy + i * a.s_yn + r * a.s_yr + c) : 0.0f;
     offx[q] = (float)(c - half);
     offy[q] = (float)(r - half);
     acc[3] += dx[q] * dx[q];
@@ -504,7 +535,7 @@ __global__ void align_iclk_window_kernel(
     acc[5] += dx[q];
     acc[6] += dy[q] * dy[q];
     acc[7] += dy[q];
-    acc[8] += t[q];
+    if constexpr (kWindow) acc[8] += t[q];
   }
   sample(acc);
   warp_sum_n(acc);
@@ -525,7 +556,7 @@ __global__ void align_iclk_window_kernel(
     *d1 = hv[1][0] * g[0] + hv[1][1] * g[1] + hv[1][2] * g[2];
     *d2 = hv[2][0] * g[0] + hv[2][1] * g[1] + hv[2][2] * g[2];
   };
-  for (int it = 0; it < n_iter; ++it) {
+  for (int it = 0; it < a.n_iter; ++it) {
     if (!inb(u, v)) break;                 // uniform across the warp
     float d0, d1, d2;
     step(&d0, &d1, &d2);
@@ -543,39 +574,76 @@ __global__ void align_iclk_window_kernel(
   float d0, d1, d2;
   step(&d0, &d1, &d2);                     // step probe on the final resample
   const float step2 = ok ? d0 * d0 + d1 * d1 : INFINITY;
-  const float du = u - u_init, dv = v - v_init;
+  const float du = u - (kWindow ? u_init : u_raw);
+  const float dv = v - (kWindow ? v_init : v_raw);
   bool conv = (step2 < kConvStep2) && (sqrtf(du * du + dv * dv) < (float)p);
-  if (zmssd_on || std_on) {                // appearance gates on the resample
-    float s1[1] = {0.0f};
+  if constexpr (kWindow) {
+    if (a.zmssd_on || a.std_on) {          // appearance gates on the resample
+      float s1[1] = {0.0f};
 #pragma unroll
-    for (int q = 0; q < K; ++q) s1[0] += cur[q];
-    warp_sum_n(s1);
-    const float cmean = s1[0] / (float)area;
-    const float tmean = acc[8] / (float)area;
-    float s2[2] = {0.0f, 0.0f};
+      for (int q = 0; q < K; ++q) s1[0] += cur[q];
+      warp_sum_n(s1);
+      const float cmean = s1[0] / (float)area;
+      const float tmean = acc[8] / (float)area;
+      float s2[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int q = 0; q < K; ++q) {
-      if (lane + 32 * q < area) {
-        const float cz = cur[q] - cmean;
-        const float dz = cz - (t[q] - tmean);
-        s2[0] += dz * dz;
-        s2[1] += cz * cz;
+      for (int q = 0; q < K; ++q) {
+        if (lane + 32 * q < area) {
+          const float cz = cur[q] - cmean;
+          const float dz = cz - (t[q] - tmean);
+          s2[0] += dz * dz;
+          s2[1] += cz * cz;
+        }
       }
+      warp_sum_n(s2);
+      if (a.zmssd_on) conv = conv && (s2[0] < a.zmssd_max);
+      if (a.std_on) conv = conv && (sqrtf(s2[1] / (float)area) >= a.std_min);
     }
-    warp_sum_n(s2);
-    if (zmssd_on) conv = conv && (s2[0] < zmssd_max);
-    if (std_on) conv = conv && (sqrtf(s2[1] / (float)area) >= std_min);
   }
   if (lane == 0) {
-    out_uv[2 * i] = u;
-    out_uv[2 * i + 1] = v;
-    out_conv[i] = conv ? 1 : 0;
-    out_mean[i] = mean;
+    a.out_uv[2 * i] = u;
+    a.out_uv[2 * i + 1] = v;
+    a.out_conv[i] = conv ? 1 : 0;
+    a.out_mean[i] = mean;
   }
+}
+
+template <int K>
+__global__ void align_iclk_kernel(const IclkArgs a) {
+  iclk_feature<K, false>(a);
+}
+
+template <int K>
+__global__ void align_iclk_window_kernel(const IclkArgs a) {
+  iclk_feature<K, true>(a);
 }
 
 inline unsigned blocks_for(long long threads, int per_block) {
   return (unsigned)((threads + per_block - 1) / per_block);
+}
+
+template <int K>
+int iclk_launch_k(bool window, const IclkArgs& a, cudaStream_t st) {
+  const int tpb = 128;                     // 4 features per block
+  const dim3 grid(blocks_for((long long)a.n * 32, tpb));
+  if (window) {
+    align_iclk_window_kernel<K><<<grid, tpb, 0, st>>>(a);
+  } else {
+    align_iclk_kernel<K><<<grid, tpb, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+int iclk_launch(bool window, const IclkArgs& a, void* stream) {
+  if (a.n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((4 * a.half * a.half + 31) / 32) {   // patch pixels per lane
+    case 1: return iclk_launch_k<1>(window, a, st);
+    case 2: return iclk_launch_k<2>(window, a, st);
+    case 3: return iclk_launch_k<3>(window, a, st);
+    case 4: return iclk_launch_k<4>(window, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -602,30 +670,43 @@ int launch_sample_patches(const float* stack, long long s_l, long long s_r,
 
 int launch_epi_scan(const float* stack, long long s_l, long long s_r, int L,
                     int H, int W, int h_true, int w_true, const int* lvl,
-                    const float* uv_a, const float* uv_b, const int* n_steps,
-                    const float* ref_zm, int n, int n_steps_max, int half,
+                    const float* uv_a, long long s_an, long long s_ac,
+                    const float* uv_b, long long s_bn, long long s_bc,
+                    const int* n_steps, const float* ref, long long s_rn,
+                    long long s_rr, int n, int n_steps_max, int half,
                     float* out_t, float* out_s, void* stream) {
-  const int tpb = 128;                     // 4 seeds per block
-  epi_scan_kernel<<<blocks_for((long long)n * 32, tpb), tpb, 0,
-                    (cudaStream_t)stream>>>(
-      stack, s_l, s_r, L, H, W, h_true, w_true, lvl, uv_a, uv_b, n_steps,
-      ref_zm, n, n_steps_max, half, out_t, out_s);
+  if (n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  constexpr int tpb = 32 * kScanWarps;
+#define EPI_SCAN_ARGS                                                        \
+  stack, s_l, s_r, L, h_true, w_true, lvl, uv_a, s_an, s_ac, uv_b, s_bn,     \
+      s_bc, n_steps, ref, s_rn, s_rr, n_steps_max, out_t, out_s
+  switch (half) {
+    case 1: epi_scan_kernel<1><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
+    case 2: epi_scan_kernel<2><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
+    case 3: epi_scan_kernel<3><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
+    case 4: epi_scan_kernel<4><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
+    case 5: epi_scan_kernel<5><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef EPI_SCAN_ARGS
   return (int)cudaGetLastError();
 }
 
 int launch_align_iclk(const float* stack, long long s_l, long long s_r, int L,
                       int H, int W, int h_true, int w_true, const int* lvl,
-                      const float* T, const float* gx, const float* gy,
-                      const float* hinv, const float* uv0,
+                      const float* T, long long s_tn, long long s_tr,
+                      const float* gx, long long s_xn, long long s_xr,
+                      const float* gy, long long s_yn, long long s_yr,
+                      const float* uv0, long long s_un, long long s_uc,
                       const unsigned char* valid, int n, int n_iter, int half,
-                      float* out_uv, float* out_mean, float* out_step2,
+                      float* out_uv, unsigned char* out_conv, float* out_mean,
                       void* stream) {
-  const int tpb = 128;                     // 4 features per block
-  align_iclk_kernel<<<blocks_for((long long)n * 32, tpb), tpb, 0,
-                      (cudaStream_t)stream>>>(
-      stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, gx, gy, hinv, uv0,
-      valid, n, n_iter, half, out_uv, out_mean, out_step2);
-  return (int)cudaGetLastError();
+  const IclkArgs a{stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, s_tn,
+                   s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr, uv0, s_un, s_uc,
+                   valid, n, n_iter, half, 0, 0.0f, 0, 0.0f, out_uv,
+                   out_conv, out_mean};
+  return iclk_launch(false, a, stream);
 }
 
 int launch_align_iclk_window(
@@ -637,23 +718,11 @@ int launch_align_iclk_window(
     int n_iter, int half, int zmssd_on, float zmssd_max, int std_on,
     float std_min, float* out_uv, unsigned char* out_conv, float* out_mean,
     void* stream) {
-  if (n <= 0) return 0;
-  const int tpb = 128;                     // 4 features per block
-  const dim3 grid(blocks_for((long long)n * 32, tpb));
-  cudaStream_t st = (cudaStream_t)stream;
-#define ICLK_WINDOW_ARGS                                                     \
-  stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, s_tn, s_tr, gx, s_xn,    \
-      s_xr, gy, s_yn, s_yr, uv0, s_un, s_uc, valid, n, n_iter, half,         \
-      zmssd_on, zmssd_max, std_on, std_min, out_uv, out_conv, out_mean
-  switch ((4 * half * half + 31) / 32) {   // patch pixels per lane
-    case 1: align_iclk_window_kernel<1><<<grid, tpb, 0, st>>>(ICLK_WINDOW_ARGS); break;
-    case 2: align_iclk_window_kernel<2><<<grid, tpb, 0, st>>>(ICLK_WINDOW_ARGS); break;
-    case 3: align_iclk_window_kernel<3><<<grid, tpb, 0, st>>>(ICLK_WINDOW_ARGS); break;
-    case 4: align_iclk_window_kernel<4><<<grid, tpb, 0, st>>>(ICLK_WINDOW_ARGS); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef ICLK_WINDOW_ARGS
-  return (int)cudaGetLastError();
+  const IclkArgs a{stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, s_tn,
+                   s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr, uv0, s_un, s_uc,
+                   valid, n, n_iter, half, zmssd_on, zmssd_max, std_on,
+                   std_min, out_uv, out_conv, out_mean};
+  return iclk_launch(true, a, stream);
 }
 
 }  // extern "C"

@@ -6,8 +6,10 @@ plain PyTorch version beside it:
 
   kernel                      replaces (patch_pallas.py)          plain version
   sample_patches_kernel       _sample_pallas                      _sample_plain
-  epi_scan_kernel             _scan_pallas                        _scan_plain
-  align_iclk_kernel           _align_pallas                       _align_plain
+  epi_scan_kernel             _scan_pallas + the rest of          _scan_plain
+                              epi_scan (centring, nan_to_num)
+  align_iclk_kernel           _align_pallas + the rest of         _align_plain
+                              align_iclk (Hessian, convergence)
   align_iclk_window_kernel    _dump_pallas + the rest of          dump_windows_plain +
                               align_iclk_mxu (Hessian, one-hot    _align_mxu_plain
                               einsum ICLK, gates)
@@ -16,11 +18,11 @@ Dispatch: a wrapper launches the kernel when `use_pallas` is true and its
 tensors lie on a CUDA device, and takes the plain version only for CPU
 tensors (or when `use_pallas` is false).  On a CUDA tensor it launches or
 raises; there is no fallback.  Every launch adds one to `LAUNCHES[name]`.
-`sample_patches` and `align_iclk_mxu` convert nothing on CUDA: each makes
-its output allocations and one launch, and raises on inputs of another
-type or device (at the tracking path's sizes their kernels take 2-9 us on
-an NVIDIA H100 80GB HBM3 at 700 W, less than the dozens of small tensor
-ops they used to sit between).
+No wrapper converts anything on CUDA: each makes its output allocations and
+one launch, and raises on inputs of another type or device (at the
+tracking path's sizes the kernels take microseconds on an NVIDIA H100 80GB
+HBM3 at 700 W, less than the dozens of small tensor ops they used to sit
+between).
 
 Layout contract as in the JAX package: the stack is `(L, Hp, Wp)` with level
 l in the top-left `(h>>l, w>>l)` corner; uv are level-pixel coordinates; the
@@ -29,8 +31,6 @@ position) for dead ones, so compare valid slots only.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -63,10 +63,6 @@ def _on_card(t: torch.Tensor, use_pallas) -> bool:
 # ---------------------------------------------------------------------------
 # launch plumbing
 # ---------------------------------------------------------------------------
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
 
 def _stream(device: int) -> int:
     """The current stream's cudaStream_t on CUDA device index `device` (a C
@@ -110,20 +106,14 @@ def _contiguous(t, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _f32(t, device, shape=None):
-    t = t.to(device=device, dtype=torch.float32).contiguous()
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    return t
-
-
-def _i32(t, device):
-    return t.to(device=device, dtype=torch.int32).contiguous()
-
-
-def _b8(t, device):
-    return t.to(device=device, dtype=torch.bool).contiguous()
+def _patch_args(t, name: str, n: int, p: int, device: int):
+    """(pointer, stride(0), stride(1)) of an (n, p, p) float32 patch tensor
+    with contiguous rows (patch_gradients' strided interior view passes)."""
+    _check(t, name, torch.float32, (n, p, p), device)
+    s = t.stride()
+    if n and s[2] != 1:
+        raise ValueError(f"{name} rows must be contiguous (stride(2) == 1)")
+    return (t.data_ptr(), s[0], s[1])
 
 
 def _nan0(t):
@@ -248,25 +238,41 @@ def _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
     return best_t, best_s
 
 
-def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
+def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
                  n_steps_max: int, half: int, h: int, w: int):
-    dev = stack.device
+    """The whole of epi_scan in one launch (the kernel centres the
+    reference, zeroes non-finite segment ends and reads uv and the reference
+    through their strides; a None `n_steps_each` is a null pointer); the
+    host allocates the two outputs and converts nothing."""
+    dev = stack.get_device()
     n = lvl.shape[0]
     p = 2 * half
-    if p * p > 128:
-        raise ValueError("epi_scan_kernel takes patches of at most 128 px")
-    best_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    best_s = torch.empty((n,), dtype=torch.float32, device=dev)
+    if not 0 < p * p <= 128:
+        raise ValueError(f"epi_scan_kernel takes patches of 1 to 128 px, got "
+                         f"half={half}")
+    stack_args = _stack_args(stack)
+    if h > stack_args[4] or w > stack_args[5]:
+        # the kernel reads in-bounds taps without clamps
+        raise ValueError(f"image dims {h}x{w} exceed the stack's "
+                         f"{stack_args[4]}x{stack_args[5]}")
+    ref = _patch_args(ref_patch, "ref_patch", n, p, dev)
+    _check(uv_a, "uv_a", torch.float32, (n, 2), dev)
+    _check(uv_b, "uv_b", torch.float32, (n, 2), dev)
+    _check(lvl, "lvl", torch.int32, (n,), dev)
+    _contiguous(lvl, "lvl")
+    if n_steps_each is not None:
+        _check(n_steps_each, "n_steps_each", torch.int32, (n,), dev)
+        _contiguous(n_steps_each, "n_steps_each")
+    best_t = torch.empty((n,), dtype=torch.float32, device=stack.device)
+    best_s = torch.empty((n,), dtype=torch.float32, device=stack.device)
     if n:
-        lvl_c = _i32(lvl, dev)
-        a = _f32(_nan0(uv_a), dev, (n, 2))
-        b = _f32(_nan0(uv_b), dev, (n, 2))
-        ns = _i32(n_steps_each, dev)
-        ref = _f32(ref_patch_zm, dev, (n, p, p))
-        _launch("epi_scan_kernel", "launch_epi_scan", *_stack_args(stack),
-                int(h), int(w), _ptr(lvl_c), _ptr(a), _ptr(b), _ptr(ns),
-                _ptr(ref), n, int(n_steps_max), half, _ptr(best_t),
-                _ptr(best_s), _stream(stack.get_device()))
+        sa, sb = uv_a.stride(), uv_b.stride()
+        _launch("epi_scan_kernel", "launch_epi_scan", *stack_args, int(h),
+                int(w), lvl.data_ptr(), uv_a.data_ptr(), sa[0], sa[1],
+                uv_b.data_ptr(), sb[0], sb[1],
+                None if n_steps_each is None else n_steps_each.data_ptr(),
+                *ref, n, int(n_steps_max), half,
+                best_t.data_ptr(), best_s.data_ptr(), _stream(dev))
     return best_t, best_s
 
 
@@ -274,20 +280,30 @@ def epi_scan(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
              half: int = 4, n_steps_each=None, h: int | None = None,
              w: int | None = None, use_pallas=True):
     """Best ZMSSD match along each seed's epipolar segment: scans
-    `n_steps_each[i]` (clipped to [0, n_steps_max]) uniform positions from
-    uv_a to uv_b; returns (t_best in [0,1], score).  Positions outside the
-    TRUE level dims (h>>l, w>>l) with margin half+2 score +inf."""
+    `n_steps_each[i]` (clipped to [0, n_steps_max]; None: n_steps_max)
+    uniform positions from uv_a to uv_b; returns (t_best in [0,1], score),
+    the first minimum.  Positions outside the TRUE level dims (h>>l, w>>l)
+    with margin half+2 score +inf; a seed with none in bounds (or 0 steps)
+    gives (0, +inf).
+
+    On CUDA one launch of epi_scan_kernel computes all of it: the wrapper
+    allocates the two outputs and raises on inputs that are not float32 uv
+    and reference patches (any strides; the patches' rows contiguous) and
+    int32 `lvl` / `n_steps_each` on the stack's device.  On the CPU the
+    plain version runs on the centred reference."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
+    if _on_card(stack, use_pallas):
+        return _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
+                            n_steps_max, half, h, w)
     if n_steps_each is None:
         n_steps_each = torch.full(lvl.shape, n_steps_max, dtype=torch.int32,
                                   device=lvl.device)
     rp = ref_patch.reshape(ref_patch.shape[0], -1)
     rp = (rp - rp.mean(dim=-1, keepdim=True)).reshape(ref_patch.shape)
-    fn = _scan_kernel if _on_card(stack, use_pallas) else _scan_plain
-    return fn(stack, lvl, uv_a, uv_b, n_steps_each, rp, n_steps_max, half,
-              h, w)
+    return _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, rp, n_steps_max,
+                       half, h, w)
 
 
 # ---------------------------------------------------------------------------
@@ -355,41 +371,70 @@ def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
     return uv, mean, step2
 
 
-def _align_kernel(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
-                  half: int, h: int, w: int):
-    dev = stack.device
-    n = lvl.shape[0]
-    p = 2 * half
-    if p * p > 128:
-        raise ValueError("align_iclk_kernel takes patches of at most 128 px")
-    out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    out_mean = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_step2 = torch.empty((n,), dtype=torch.float32, device=dev)
+def _iclk_launch(name: str, fn_name: str, stack, lvl, T, gx, gy, uv0, valid,
+                 n_iter: int, h: int, w: int, gates: tuple = ()):
+    """Checks, the three output allocations and the one launch of an ICLK
+    kernel (`gates`: the window kernel's gate flags and levels); inputs of
+    another type, shape, layout or device raise before any allocation."""
+    dev = stack.get_device()
+    n, p = T.shape[0], T.shape[-1]
+    if p % 2 or not 0 < p * p <= 128:
+        raise ValueError(f"{name} takes even patch sides of at most 128 px, "
+                         f"got {tuple(T.shape)}")
+    stack_args = _stack_args(stack)
+    args = [*_patch_args(T, "ref_patch", n, p, dev),
+            *_patch_args(gx, "ref_dx", n, p, dev),
+            *_patch_args(gy, "ref_dy", n, p, dev)]
+    _check(uv0, "init_uv", torch.float32, (n, 2), dev)
+    _check(lvl, "lvl", torch.int32, (n,), dev)
+    _contiguous(lvl, "lvl")
+    _check(valid, "valid", torch.bool, (n,), dev)
+    _contiguous(valid, "valid")
+    device = stack.device
+    out_uv = torch.empty((n, 2), dtype=torch.float32, device=device)
+    out_conv = torch.empty((n,), dtype=torch.bool, device=device)
+    out_mean = torch.empty((n,), dtype=torch.float32, device=device)
     if n:
-        args = [_i32(lvl, dev), _f32(T, dev, (n, p, p)),
-                _f32(gx, dev, (n, p, p)), _f32(gy, dev, (n, p, p)),
-                _f32(hinv, dev, (n, 3, 3)), _f32(_nan0(uv0), dev, (n, 2)),
-                _b8(valid, dev)]
-        _launch("align_iclk_kernel", "launch_align_iclk", *_stack_args(stack),
-                int(h), int(w), *[_ptr(a) for a in args], n, int(n_iter),
-                half, _ptr(out_uv), _ptr(out_mean), _ptr(out_step2),
-                _stream(stack.get_device()))
-    return out_uv, out_mean, out_step2
+        su = uv0.stride()
+        _launch(name, fn_name, *stack_args, int(h), int(w), lvl.data_ptr(),
+                *args, uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n,
+                int(n_iter), p // 2, *gates, out_uv.data_ptr(),
+                out_conv.data_ptr(), out_mean.data_ptr(), _stream(dev))
+    return out_uv, out_conv, out_mean
+
+
+def _align_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int, h: int,
+                  w: int):
+    """The whole of align_iclk in one launch (Hessian and inverse,
+    NaN-zeroing, ICLK and convergence in the kernel)."""
+    return _iclk_launch("align_iclk_kernel", "launch_align_iclk", stack, lvl,
+                        T, gx, gy, uv0, valid, n_iter, h, w)
 
 
 def align_iclk(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                n_iter: int, h: int | None = None, w: int | None = None,
                use_pallas=True):
     """Batched 2D inverse-compositional LK with mean-brightness term at
-    per-feature pyramid level.  Returns (uv, converged, mean_diff)."""
+    per-feature pyramid level.  Returns (uv, converged, mean_diff);
+    `converged` measures the drift from `init_uv` as given, so a non-finite
+    start never converges.
+
+    On CUDA one launch of align_iclk_kernel computes all of it; the wrapper
+    allocates the outputs and raises on inputs that are not float32
+    patches (any strides with contiguous rows) and uv, int32 `lvl` and bool
+    `valid` on the stack's device.  The kernel starts from `init_uv` with
+    NaN and +-inf read as 0 and returns that start for dead slots.  On the
+    CPU the plain version runs from `init_uv` as given."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
+    if _on_card(stack, use_pallas):
+        return _align_kernel(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
+                             valid, n_iter, h, w)
     p = ref_patch.shape[1]
     hinv = _iclk_hinv(ref_dx, ref_dy)
-    fn = _align_kernel if _on_card(stack, use_pallas) else _align_plain
-    uv, mean, step2 = fn(stack, lvl, ref_patch, ref_dx, ref_dy, hinv,
-                         init_uv, valid, n_iter, p // 2, h, w)
+    uv, mean, step2 = _align_plain(stack, lvl, ref_patch, ref_dx, ref_dy,
+                                   hinv, init_uv, valid, n_iter, p // 2, h, w)
     drift = torch.linalg.norm(uv - init_uv, dim=-1)
     converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
     return uv, converged, mean
@@ -514,50 +559,17 @@ def _align_mxu_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
     return torch.stack([u, v], dim=-1), mean, step2, score, std
 
 
-def _patch_args(t, name: str, n: int, p: int, device: int):
-    _check(t, name, torch.float32, (n, p, p), device)
-    s = t.stride()
-    if n and s[2] != 1:
-        raise ValueError(f"{name} rows must be contiguous (stride(2) == 1)")
-    return (t.data_ptr(), s[0], s[1])
-
-
 def _align_window_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int,
                          h: int, w: int, zmssd_factor, min_patch_std):
     """The whole of align_iclk_mxu in one launch (Hessian and inverse,
-    NaN-zeroing, window origin, ICLK, convergence and gates in the kernel);
-    the host allocates the three outputs and converts nothing."""
-    dev = stack.get_device()
-    n, p = T.shape[0], T.shape[-1]
-    if p % 2 or not 0 < p * p <= 128:
-        raise ValueError("align_iclk_window_kernel takes even patch sides "
-                         f"of at most 128 px, got {tuple(T.shape)}")
-    stack_args = _stack_args(stack)
-    args = [*_patch_args(T, "ref_patch", n, p, dev),
-            *_patch_args(gx, "ref_dx", n, p, dev),
-            *_patch_args(gy, "ref_dy", n, p, dev)]
-    _check(uv0, "init_uv", torch.float32, (n, 2), dev)
-    _check(lvl, "lvl", torch.int32, (n,), dev)
-    _contiguous(lvl, "lvl")
-    _check(valid, "valid", torch.bool, (n,), dev)
-    _contiguous(valid, "valid")
-    device = stack.device
-    out_uv = torch.empty((n, 2), dtype=torch.float32, device=device)
-    out_conv = torch.empty((n,), dtype=torch.bool, device=device)
-    out_mean = torch.empty((n,), dtype=torch.float32, device=device)
-    if n:
-        su = uv0.stride()
-        zmssd_on = zmssd_factor is not None
-        std_on = min_patch_std is not None
-        _launch("align_iclk_window_kernel", "launch_align_iclk_window",
-                *stack_args, int(h), int(w), lvl.data_ptr(), *args,
-                uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n,
-                int(n_iter), p // 2, int(zmssd_on),
-                float(zmssd_factor) * p * p if zmssd_on else 0.0,
-                int(std_on), float(min_patch_std) if std_on else 0.0,
-                out_uv.data_ptr(), out_conv.data_ptr(), out_mean.data_ptr(),
-                _stream(dev))
-    return out_uv, out_conv, out_mean
+    NaN-zeroing, window origin, ICLK, convergence and gates in the kernel)."""
+    p = T.shape[-1]
+    zmssd_on = zmssd_factor is not None
+    std_on = min_patch_std is not None
+    gates = (int(zmssd_on), float(zmssd_factor) * p * p if zmssd_on else 0.0,
+             int(std_on), float(min_patch_std) if std_on else 0.0)
+    return _iclk_launch("align_iclk_window_kernel", "launch_align_iclk_window",
+                        stack, lvl, T, gx, gy, uv0, valid, n_iter, h, w, gates)
 
 
 def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,

@@ -76,7 +76,7 @@ def gate_inputs(n: int = 768, h: int = 480, w: int = 640, seed: int = 0,
     return {
         "stack": stack, "lvl": lvl, "uv": uv, "valid": valid, "ref": ref,
         "rdx": rdx, "rdy": rdy, "off": off, "init": uv + off, "seg": seg,
-        "nsteps": nsteps,
+        "uv_a": uv - seg, "uv_b": uv + seg, "nsteps": nsteps,
         "h": h, "w": w, "sub": sub, "sub_uv": sub_uv, "zeros_lvl": zeros_lvl,
     }
 
@@ -89,9 +89,9 @@ def kernel_calls(x: dict) -> dict:
             x["sub"], x["zeros_lvl"], x["sub_uv"], 2, valid=x["valid"],
             use_pallas=up),
         "epi_scan_kernel": lambda up: pk.epi_scan(
-            x["stack"], x["lvl"], x["uv"] - x["seg"], x["uv"] + x["seg"],
-            x["ref"], 100, half=4, n_steps_each=x["nsteps"], h=x["h"],
-            w=x["w"], use_pallas=up),
+            x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100,
+            half=4, n_steps_each=x["nsteps"], h=x["h"], w=x["w"],
+            use_pallas=up),
         "align_iclk_kernel": lambda up: pk.align_iclk(
             x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
             x["init"], x["valid"], 10, h=x["h"], w=x["w"], use_pallas=up),

@@ -13,8 +13,9 @@ every phase passed):
                pyramid), with the bounds of the JAX package's kernel gate;
                times each kernel, its plain version and (where one exists) a
                library call with CUDA events, and computes its bound; counts
-               the ATen ops and device activities one call of the sampler
-               and of the window ICLK dispatches (at most 4 / 3, exactly 1).
+               the ATen ops and device activities one call of each patch
+               kernel's wrapper dispatches (at most 4 for the sampler, 3 for
+               the others; exactly 1 device activity).
   3b. probe  — probe_patches_kernel variants A-D against their plain version
                (<= 1e-5) and variant A against interp.extract_patches
                (<= 1e-4) at N=2048 on 480x640; kernel, plain and grid_sample
@@ -70,6 +71,10 @@ KERNEL_META = {
         "android_svo_tpu/ops/patch_pallas.py:692 (_dump_pallas) + "
         "android_svo_tpu/ops/patch_pallas.py:779 (align_iclk_mxu ICLK)"),
 }
+# the README's slice of the port that made each kernel what it is now
+REDESIGNED_IN = {"sample_patches_kernel": "slice 3",
+                 "align_iclk_window_kernel": "slice 3",
+                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 4"}
 PROBE_REPLACES = (
     "scripts/probe_pallas_patch.py:26 (_kernel), "
     "scripts/microbench_gather.py:133 (patch_kernel), "
@@ -161,19 +166,38 @@ def kernel_bounds(x, pk):
     touched = min(n * 5 * 5 * 4, sub_bytes)
     out["sample_patches_kernel"] = bound(
         touched + n * (4 + 8 + 1) + n * 16 * 4, n * 16 * 11)
-    # epi_scan: per seed the bounding box of its segment (+ the patch)
+    # epi_scan: a live step inside the level's margin samples and scores
+    # the patch (~15 flops per pixel); the others are only placed and
+    # tested (~10 flops); the reference is centred once.  Bytes: the
+    # distinct pixels the scored steps' 9x9 footprints touch.
+    stack = x["stack"]
+    L, hp, wp = stack.shape
     k = torch.clamp(x["nsteps"].long(), 0, 100)
-    seg = x["seg"].abs() * 2.0
-    box = ((seg[:, 0] + 9) * (seg[:, 1] + 9)).sum().item()
-    steps = int(k.sum())
+    j = torch.arange(100, device=k.device)
+    t = torch.clamp(j[None] / torch.clamp(k - 1, min=1)[:, None], max=1.0)
+    pos = (x["uv_a"][:, None] * (1 - t[..., None])
+           + x["uv_b"][:, None] * t[..., None])
+    lvl = x["lvl"].long()[:, None].expand(n, 100)
+    wl, hl = (w >> lvl).float(), (h >> lvl).float()
+    m = 6.0                                  # half + 2
+    scored = ((j[None] < k[:, None]) & (pos[..., 0] >= m)
+              & (pos[..., 0] < wl - 1 - m) & (pos[..., 1] >= m)
+              & (pos[..., 1] < hl - 1 - m))
+    corner = torch.floor(pos[scored]).long() - 4
+    r = torch.arange(9, device=k.device)
+    rows = corner[:, None, None, 1] + r[None, :, None]
+    cols = corner[:, None, None, 0] + r[None, None, :]
+    mask = torch.zeros(L * hp * wp, dtype=torch.bool, device=k.device)
+    mask[((lvl[scored][:, None, None] * hp + rows) * wp + cols)
+         .reshape(-1)] = True
+    n_scored = int(scored.sum())
     out["epi_scan_kernel"] = bound(
-        min(box * 4, planes) + n * (64 * 4 + 16 + 4 + 4) + n * 8,
-        steps * 64 * 15)
-    # ICLK: patch footprint with the +-2 px start offset.  The window
-    # kernel forms the Hessian and its inverse itself (no hinv read, ~9
-    # flops per template pixel plus the 3x3 inverse) and writes uv, mean
-    # and converged (13 B); align_iclk_kernel reads hinv and writes uv,
-    # mean and step2 (16 B).
+        int(mask.sum()) * 4 + n * (64 * 4 + 16 + 4 + 4) + n * 8,
+        n_scored * 64 * 15 + int(k.sum()) * 10 + n * 64 * 2)
+    # ICLK: patch footprint with the +-2 px start offset.  Both kernels
+    # form the Hessian and its inverse themselves (~8 flops per template
+    # pixel plus the 3x3 inverse; no hinv read) and write uv, mean and
+    # converged (13 B); the window kernel's gates add ~9 flops per pixel.
     foot = min(n * 13 * 13 * 4, planes)
     for name, window in (("align_iclk_kernel", False),
                          ("align_iclk_window_kernel", True)):
@@ -181,12 +205,10 @@ def kernel_bounds(x, pk):
             x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], x["init"],
             x["valid"], 10, h, w, window)
         evals = upd + n                        # + the final probe
-        flops = evals * (64 * 19 + 15)
+        flops = evals * (64 * 19 + 15) + n * (64 * 8 + 60)
         if window:
-            flops += n * 64 * 8 + n * (64 * 9 + 60)
-            ins, outs = n * (3 * 64 * 4 + 4 + 8 + 1), n * 13
-        else:
-            ins, outs = n * (3 * 64 * 4 + 36 + 8 + 1 + 4), n * 16
+            flops += n * 64 * 9
+        ins, outs = n * (3 * 64 * 4 + 4 + 8 + 1), n * 13
         out[name] = bound(foot + ins + outs, flops)
     return out
 
@@ -454,7 +476,7 @@ def main() -> int:
     log(f"grid_sample for sample_patches_kernel: "
         f"{lib_ms['sample_patches_kernel'][0]:.4f} ms, device "
         f"{lib_ms['sample_patches_kernel'][1]} ms [{label}]")
-    # what the two redesigned wrappers dispatch per call on the host
+    # what the redesigned wrappers dispatch per call on the host
     dispatch = {
         "sample_patches_kernel": [
             ("4x4 on the level-2 substack", 4,
@@ -465,6 +487,15 @@ def main() -> int:
         "align_iclk_window_kernel": [
             ("8x8, both gates", 3,
              lambda: calls["align_iclk_window_kernel"](True))],
+        "align_iclk_kernel": [
+            ("8x8, 10 iterations", 3,
+             lambda: calls["align_iclk_kernel"](True))],
+        "epi_scan_kernel": [
+            ("8x8, 2-99 steps", 3, lambda: calls["epi_scan_kernel"](True)),
+            ("n_steps_each=None", 3,
+             lambda: pk.epi_scan(x["stack"], x["lvl"], x["uv_a"], x["uv_b"],
+                                 x["ref"], 100, half=4, h=x["h"],
+                                 w=x["w"]))],
     }
     host_ops = {}
     for name, cases in dispatch.items():
@@ -509,11 +540,13 @@ def main() -> int:
         log(f"time {name} with n_iter=0: device "
             f"{'n/a' if d0 is None else f'{d0:.4f}'} ms (10 iterations: "
             f"{timing[name][2]} ms) [{label}]")
-    # gate_inputs makes the ICLK start x["init"] = uv + off once, so the ICLK
-    # timings above hold no elementwise add; this is the size of that add
+    # gate_inputs makes the ICLK start x["init"] = uv + off and the scan's
+    # segment ends uv -+ seg once, so the timings above hold no elementwise
+    # op; this is the size of one
     add_ms = time_ms(lambda: x["uv"] + x["off"])
     log(f"time uv + off (the ICLK start, made outside the timed ICLK "
-        f"calls): {add_ms:.4f} ms [{label}]")
+        f"calls; the scan's two segment ends are two more of its size): "
+        f"{add_ms:.4f} ms [{label}]")
 
     # ---- 3b. probe kernel gate + timings ------------------------------------------
     pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
@@ -722,9 +755,8 @@ def main() -> int:
             "library_ms": lib_ms.get(name, (None, None))[0],
             "library_kernel_ms": lib_ms.get(name, (None, None))[1],
             "card": label})
-        if name in host_ops:
-            kernels[-1].update(host_ops_per_call=host_ops[name],
-                               redesigned_in="PR 3")
+        kernels[-1].update(host_ops_per_call=host_ops[name],
+                           redesigned_in=REDESIGNED_IN[name])
     pa = probe["A"]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",

@@ -180,20 +180,30 @@ def test_wrappers_refuse_other_types(problem):
     with pytest.raises(TypeError, match="uv"):
         pk.sample_patches(x["stack"], x["lvl"], x["uv"].double(), 4)
     args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"])
+    for align in (pk.align_iclk_mxu, pk.align_iclk):
+        with pytest.raises(TypeError, match="lvl"):
+            align(x["stack"], x["lvl"].long(), *args[2:], x["init"],
+                  x["valid"], 10)
+        with pytest.raises(TypeError, match="init_uv"):
+            align(*args, x["init"].double(), x["valid"], 10)
+    scan = (x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100)
     with pytest.raises(TypeError, match="lvl"):
-        pk.align_iclk_mxu(x["stack"], x["lvl"].long(), *args[2:], x["init"],
-                          x["valid"], 10)
-    with pytest.raises(TypeError, match="init_uv"):
-        pk.align_iclk_mxu(*args, x["init"].double(), x["valid"], 10)
+        pk.epi_scan(x["stack"], x["lvl"].long(), *scan[2:],
+                    n_steps_each=x["nsteps"])
+    with pytest.raises(TypeError, match="n_steps_each"):
+        pk.epi_scan(*scan, n_steps_each=x["nsteps"].long())
+    with pytest.raises(TypeError, match="uv_a"):
+        pk.epi_scan(x["stack"], x["lvl"], x["uv_a"].double(), *scan[3:])
     assert all(v == 0 for v in pk.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("case", ["sample_4x4", "sample_8x8_grad",
-                                  "window_gated"])
+                                  "window_gated", "align", "scan",
+                                  "scan_no_steps"])
 def test_wrapper_dispatch_counts(problem, case):
     """Under torch.profiler one call of the sampler dispatches at most 4
-    ATen ops and one of align_iclk_mxu at most 3, each exactly 1 device
-    kernel."""
+    ATen ops and one of align_iclk_mxu, align_iclk or epi_scan at most 3,
+    each exactly 1 device kernel."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
     from android_svo_tpu_torch.utils.profiling import dispatch_counts
@@ -204,6 +214,11 @@ def test_wrapper_dispatch_counts(problem, case):
         "sample_8x8_grad": (lambda: pk.sample_patches(
             x["stack"], x["lvl"], x["uv"], 4, grad=True), 4),
         "window_gated": (lambda: calls["align_iclk_window_kernel"](True), 3),
+        "align": (lambda: calls["align_iclk_kernel"](True), 3),
+        "scan": (lambda: calls["epi_scan_kernel"](True), 3),
+        "scan_no_steps": (lambda: pk.epi_scan(
+            x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100,
+            h=x["h"], w=x["w"]), 3),
     }[case]
     fn()                                   # build and warm up
     n_ops, n_dev = dispatch_counts(fn)
@@ -227,6 +242,110 @@ def test_window_kernel_reads_strided_templates(problem):
                           x["valid"], 10)
     b = pk.align_iclk_mxu(x["stack"], x["lvl"], x["ref"], x["rdx"],
                           x["rdy"], x["init"], x["valid"], 10)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _strided_copy(t):
+    """t's values in the interior view of a larger zero tensor, as
+    patch_gradients returns them: rows contiguous, the whole not."""
+    n, p, _ = t.shape
+    pb = torch.zeros((n, p + 2, p + 2), device=t.device)
+    pb[:, 1:-1, 1:-1] = t
+    view = pb[:, 1:-1, 1:-1]
+    assert not view.is_contiguous()
+    return view
+
+
+def _strided_uv(uv):
+    view = torch.stack([uv[:, 0], torch.zeros_like(uv[:, 0]), uv[:, 1]],
+                       dim=-1)[:, ::2]
+    assert view.stride() == (3, 2)
+    return view
+
+
+def test_align_and_scan_read_strided_inputs(problem):
+    """align_iclk's T / gx / gy and init_uv and epi_scan's reference and
+    segment ends are read through their strides: the same answer as
+    contiguous copies."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    a = pk.align_iclk(x["stack"], x["lvl"], _strided_copy(x["ref"]),
+                      _strided_copy(x["rdx"]), _strided_copy(x["rdy"]),
+                      _strided_uv(x["init"]), x["valid"], 10)
+    b = pk.align_iclk(x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
+                      x["init"], x["valid"], 10)
+    c = pk.epi_scan(x["stack"], x["lvl"], _strided_uv(x["uv_a"]),
+                    _strided_uv(x["uv_b"]), _strided_copy(x["ref"]), 100,
+                    n_steps_each=x["nsteps"], h=x["h"], w=x["w"])
+    d = pk.epi_scan(x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"],
+                    100, n_steps_each=x["nsteps"], h=x["h"], w=x["w"])
+    torch.cuda.synchronize()
+    for u, v in zip((*a, *c), (*b, *d)):
+        assert torch.equal(u, v)
+
+
+def test_align_nonfinite_start_never_converges(problem):
+    """align_iclk_kernel iterates from init_uv with NaN and +-inf read as
+    0 (the same iterates as from the zeroed start) but measures the drift
+    from init_uv as given: a non-finite start never converges, as in the
+    plain version."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    init = _poison(x["init"])
+    bad = ~torch.isfinite(init).all(dim=-1)
+    args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"])
+    uk, ck, mk = pk.align_iclk(*args, init, x["valid"], 10)
+    uz, cz, mz = pk.align_iclk(*args, _nan0(init), x["valid"], 10)
+    up, cp, _ = pk.align_iclk(*args, init, x["valid"], 10, use_pallas=False)
+    torch.cuda.synchronize()
+    assert torch.equal(uk, uz) and torch.equal(mk, mz)
+    assert torch.equal(uk[bad], _nan0(init)[bad])
+    assert not ck[bad].any() and not cp[bad].any()
+    assert torch.equal(ck[~bad], cz[~bad])
+    assert float((ck == cp).float().mean()) >= 0.95
+
+
+def test_scan_first_minimum_and_empty_seeds(card):
+    """The CPU test's flat-stack problem on the card: every in-bounds step
+    scores exactly 0, so the tied steps lie on all of the block's warps and
+    the first one must win the block reduction (j = 4 of 21 against warp
+    0's j = 8; j = 13 of 30, a warp's second step of its first iteration;
+    j = 5 of 41 on level 1), and seeds with no in-bounds position or 0 steps
+    give (0, +inf), as the plain version."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    h, w = 240, 320
+    flat = torch.zeros((3, h, w), device=card)
+    ua = torch.tensor([[2.25, 60.0], [1.0, 60.0], [100.0, 60.0],
+                       [50.0, 1.5], [-6.5, 60.0]], device=card)
+    ub = torch.tensor([[22.25, 60.0], [4.0, 60.0], [120.0, 60.0],
+                       [50.0, 41.5], [22.5, 60.0]], device=card)
+    ns = torch.tensor([21, 10, 0, 41, 30], dtype=torch.int32, device=card)
+    lvl = torch.tensor([0, 0, 0, 1, 0], dtype=torch.int32, device=card)
+    ref = torch.zeros((5, 8, 8), device=card)
+    want = pk.epi_scan(flat, lvl, ua, ub, ref, 41, n_steps_each=ns, h=h, w=w,
+                       use_pallas=False)
+    want_t = torch.tensor([4 / 20, 0.0, 0.0, 5 / 40, 13 / 29])
+    assert torch.equal(want[0].cpu(), want_t)
+    pk.reset_launch_counts()
+    got = pk.epi_scan(flat, lvl, ua, ub, ref, 41, n_steps_each=ns, h=h, w=w)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["epi_scan_kernel"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (a, b)
+
+
+def test_scan_nonfinite_ends_read_as_zero(problem):
+    """NaN and +-inf in uv_a / uv_b give the kernel's answer on the zeroed
+    ends."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    kw = dict(n_steps_each=x["nsteps"], h=x["h"], w=x["w"])
+    ua, ub = _poison(x["uv_a"]), _poison(x["uv_b"].flip(0)).flip(0)
+    a = pk.epi_scan(x["stack"], x["lvl"], ua, ub, x["ref"], 100, **kw)
+    b = pk.epi_scan(x["stack"], x["lvl"], _nan0(ua), _nan0(ub), x["ref"],
+                    100, **kw)
     torch.cuda.synchronize()
     for u, v in zip(a, b):
         assert torch.equal(u, v)

@@ -140,6 +140,36 @@ class TestEpiScan:
         assert abs(float(tb[0]) - 0.5) < 0.04
         assert float(s[0]) < 1.0
 
+    @pytest.mark.parametrize("mode", JAX_MODES)
+    def test_first_minimum_and_empty_seeds(self, mode):
+        """On a flat stack every in-bounds step scores exactly 0, so the
+        first in-bounds step wins: j = 4 of 21 (x = 2.25 + j passes the
+        margin 6 at j = 4) and j = 5 of 41 on level 1 (y = 1.5 + j), not
+        j = 0.  A seed with no in-bounds position and a seed with 0 steps
+        give (0, +inf)."""
+        flat = np.zeros((L, H, W), np.float32)
+        ua = np.array([[2.25, 60.0], [1.0, 60.0], [100.0, 60.0],
+                       [50.0, 1.5]], np.float32)
+        ub = np.array([[22.25, 60.0], [4.0, 60.0], [120.0, 60.0],
+                       [50.0, 41.5]], np.float32)
+        ns = np.array([21, 10, 0, 41], np.int32)
+        lvl = np.array([0, 0, 0, 1], np.int32)
+        ref = np.zeros((4, 8, 8), np.float32)
+        want_t = np.array([0.2, 0.0, 0.0, 0.125], np.float32)
+        want_s = np.array([0.0, np.inf, np.inf, 0.0], np.float32)
+        tj, sj = pp.epi_scan(jnp.asarray(flat), jnp.asarray(lvl),
+                             jnp.asarray(ua), jnp.asarray(ub),
+                             jnp.asarray(ref), 41, half=4,
+                             n_steps_each=jnp.asarray(ns), h=H, w=W, **mode)
+        tp, sp = pk.epi_scan(t(flat), t(lvl), t(ua), t(ub), t(ref), 41,
+                             half=4, n_steps_each=t(ns), h=H, w=W)
+        for tb, sb in ((np.asarray(tj), np.asarray(sj)),
+                       (tp.numpy(), sp.numpy())):
+            # t = j / (k - 1): the Pallas kernel multiplies by the
+            # reciprocal, the plain versions divide (an ulp apart)
+            np.testing.assert_allclose(tb, want_t, rtol=0, atol=1e-6)
+            np.testing.assert_array_equal(sb, want_s)
+
 
 def _conv_agree(cj, cp, min_frac=0.95):
     assert (np.asarray(cj) == cp.numpy()).mean() >= min_frac
@@ -168,6 +198,31 @@ class TestAlignICLK:
         assert d <= 5e-3, d
         err = np.linalg.norm(up.numpy() - x["uv"], axis=-1)[cp.numpy()]
         assert np.median(err) <= 0.5
+
+    @pytest.mark.parametrize("mode", JAX_MODES)
+    def test_nonfinite_start_never_converges(self, stack, problem, mode):
+        """The drift is measured from init_uv as given, so a valid feature
+        whose start holds NaN or +-inf ends unconverged, whether the
+        iterations start from it (the spec) or from it zeroed (the Pallas
+        kernel's nan_to_num)."""
+        x = problem
+        init = x["uv"] + x["off"]
+        init[0::5, 0] = np.nan
+        init[1::5, 1] = np.inf
+        init[2::5, 0] = -np.inf
+        bad = ~np.isfinite(init).all(axis=-1)
+        assert (bad & x["valid"]).sum() >= 10
+        _, cj, _ = pp.align_iclk(
+            stack, jnp.asarray(x["lvl"]), jnp.asarray(x["ref"]),
+            jnp.asarray(x["dx"]), jnp.asarray(x["dy"]), jnp.asarray(init),
+            jnp.asarray(x["valid"]), 10, h=H, w=W, **mode)
+        _, cp, _ = pk.align_iclk(
+            t(stack), t(x["lvl"]), t(x["ref"]), t(x["dx"]), t(x["dy"]),
+            t(init), t(x["valid"]), 10, h=H, w=W)
+        cj, cp = np.asarray(cj), cp.numpy()
+        assert not cj[bad].any() and not cp[bad].any()
+        _conv_agree(cj[~bad], t(cp[~bad]))
+        assert cp[~bad].sum() >= 0.8 * (x["valid"] & ~bad).sum()
 
     def test_invalid_stays_put(self, stack, problem):
         x = problem
@@ -326,6 +381,60 @@ class TestDispatch:
             pk._align_window_kernel(t(stack), t(x["lvl"]), n_iter=10, h=H,
                                     w=W, zmssd_factor=None,
                                     min_patch_std=None, **args)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["init_float64", "lvl_int64",
+                                     "gx_transposed", "patch_too_big"])
+    def test_align_checks_before_launch(self, stack, problem, bad):
+        x = problem
+        args = dict(lvl=t(x["lvl"]), T=t(x["ref"]), gx=t(x["dx"]),
+                    gy=t(x["dy"]), uv0=t(x["uv"] + x["off"]),
+                    valid=t(x["valid"]))
+        if bad == "init_float64":
+            args["uv0"] = args["uv0"].double()
+        elif bad == "lvl_int64":
+            args["lvl"] = args["lvl"].long()
+        elif bad == "gx_transposed":
+            args["gx"] = args["gx"].transpose(1, 2)
+        else:
+            args.update(T=torch.zeros((N, 12, 12)),
+                        gx=torch.zeros((N, 12, 12)),
+                        gy=torch.zeros((N, 12, 12)))
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64")) else ValueError
+        with pytest.raises(err):
+            pk._align_kernel(t(stack), n_iter=10, h=H, w=W, **args)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["uv_a_float64", "lvl_int64",
+                                     "n_steps_int64", "ref_transposed",
+                                     "patch_too_big", "n_steps_strided",
+                                     "dims_beyond_stack"])
+    def test_scan_checks_before_launch(self, stack, problem, bad):
+        x = problem
+        uv = t(x["uv"])
+        args = dict(lvl=t(x["lvl"]), uv_a=uv - 5.0, uv_b=uv + 5.0,
+                    n_steps_each=torch.full((N,), 15, dtype=torch.int32),
+                    ref_patch=t(x["ref"]), half=4, h=H, w=W)
+        if bad == "uv_a_float64":
+            args["uv_a"] = args["uv_a"].double()
+        elif bad == "lvl_int64":
+            args["lvl"] = args["lvl"].long()
+        elif bad == "n_steps_int64":
+            args["n_steps_each"] = args["n_steps_each"].long()
+        elif bad == "ref_transposed":
+            args["ref_patch"] = args["ref_patch"].transpose(1, 2)
+        elif bad == "patch_too_big":
+            args.update(ref_patch=torch.zeros((N, 12, 12)), half=6)
+        elif bad == "n_steps_strided":
+            args["n_steps_each"] = torch.full((2 * N,), 15,
+                                              dtype=torch.int32)[::2]
+        else:
+            args["w"] = stack.shape[2] + 1
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64")) else ValueError
+        with pytest.raises(err):
+            pk._scan_kernel(t(stack), n_steps_max=30, **args)
         assert all(v == 0 for v in pk.LAUNCHES.values())
 
     def test_update_count_bounded(self, stack, problem):
