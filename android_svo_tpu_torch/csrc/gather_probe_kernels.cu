@@ -19,16 +19,29 @@
 // (pltpu.roll); this kernel clamps every read to the image instead, as the
 // plain version (ops/gather_probe.py::probe_patches_plain) does.
 //
-// Bound: bytes.  At the microbench's size (2048 patches of 8x8 on 480x640)
-// the inputs are the touched pixels (at most the 1.2 MB image) and 16 KB of
-// uv, the output 0.5 MB; ~11 flops per output pixel is 1.4 MFLOP.  Design:
-// one thread per output pixel, 64 threads per feature, four features per
-// 256-thread block, so a warp reads two neighbouring 8-pixel row segments
-// per tap; the image is read with __ldg (L1/L2-cached, the 9x9 window is
-// re-read by its 64 threads from cache).  The TPU's aligned-window-and-roll
-// schedule exists for its (8, 128) vector tiles and is not carried over.
-// The lerp is written with explicitly rounded fp32 operations in the order
-// of the plain version, so the two agree bit for bit.
+// Bound: bytes.  The output (256 B per feature) dominates: at 32768
+// features on 480x640 the touched pixels (at most the 1.2 MB image), 256 KB
+// of uv and 8.4 MB of patches take ~2.9 us at 3.35 TB/s against ~23 MFLOP
+// (0.34 us).  The TPU keeps the whole image in VMEM and rolls a window per
+// feature into place; the image does not fit one SM's shared memory but
+// stays in the 50 MB L2, so here each feature's (P+1)^2 window is staged
+// once, on chip, for the warp that computes it:
+//   - one warp per feature, 8 features per 256-thread block;
+//   - lane l loads window elements l, l+32, l+64 (< 81): element e is the
+//     pixel (clamp(oy + e/9, 0, H-1), clamp(ox + e%9, 0, W-1)) of the
+//     variant's origin (oy, ox), written to the warp's 9x9 tile in shared
+//     memory, then __syncwarp();
+//   - lane l computes output pixels l and l+32 from tile entries [r][c],
+//     [r][c+1], [r+1][c], [r+1][c+1] and writes them as two coalesced
+//     128-byte stores.
+// Image loads per feature fall from 256 (one thread per output pixel, four
+// taps each) to 81, uv loads from 128 to 64 (two per lane).  Clamping acts
+// on each coordinate alone, so the plain version's tap (clamp(oy+r+dy),
+// clamp(ox+c+dx)) is tile entry [r+dy][c+dx] for any uv, off-image, NaN and
+// +-huge included; the lerp is written with explicitly rounded fp32
+// operations in the plain version's order, so the two agree bit for bit.
+// TMA is not used: its tile copy fills off-image reads with zeros, not the
+// border, and needs a tensor map per image on the host.
 //
 // Plain C interface (nvcc -shared, bound with ctypes); the launcher returns
 // the cudaError_t of the launch.
@@ -40,8 +53,10 @@ namespace {
 
 constexpr int kP = 8;                     // patch size
 constexpr int kHalf = kP / 2;
-constexpr int kFeatPerBlock = 4;
-constexpr int kThreads = kP * kP * kFeatPerBlock;
+constexpr int kT = kP + 1;                // window side
+constexpr int kTile = kT * kT;            // window elements
+constexpr int kWarps = 8;                 // features per block
+constexpr int kThreads = 32 * kWarps;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -60,17 +75,16 @@ __device__ __forceinline__ int floor_int(float f) {
 }
 
 template <char V>
-__global__ void probe_patches_kernel(const float* __restrict__ img, int H,
-                                     int W, const float* __restrict__ uv,
-                                     int n, float* __restrict__ out) {
-  const int gid = blockIdx.x * kThreads + threadIdx.x;
-  const int i = gid / (kP * kP);
-  if (i >= n) return;
-  const int pix = gid % (kP * kP);
-  const int r = pix / kP, c = pix % kP;
+__global__ void __launch_bounds__(kThreads)
+probe_patches_kernel(const float* __restrict__ img, int H, int W,
+                     const float* __restrict__ uv, int n,
+                     float* __restrict__ out) {
+  __shared__ float tiles[kWarps][kTile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + warp;
+  if (i >= n) return;                     // the whole warp leaves together
   const float x = __ldg(uv + 2 * i), y = __ldg(uv + 2 * i + 1);
   const float x0f = floorf(x), y0f = floorf(y);
-  const float wx = __fsub_rn(x, x0f), wy = __fsub_rn(y, y0f);
   const int xi = floor_int(x0f) - kHalf;
   const int yi = floor_int(y0f) - kHalf;
   int oy = yi, ox = xi;
@@ -82,16 +96,33 @@ __global__ void probe_patches_kernel(const float* __restrict__ img, int H,
     oy = clampi(floor_div(yi, 8) * 8, 0, H - 16);
     ox = 0;
   }
-  const int y0 = clampi(oy + r, 0, H - 1), y1 = clampi(oy + r + 1, 0, H - 1);
-  const int x0 = clampi(ox + c, 0, W - 1), x1 = clampi(ox + c + 1, 0, W - 1);
-  const float v00 = __ldg(img + (long long)y0 * W + x0);
-  const float v01 = __ldg(img + (long long)y0 * W + x1);
-  const float v10 = __ldg(img + (long long)y1 * W + x0);
-  const float v11 = __ldg(img + (long long)y1 * W + x1);
+  float* tile = tiles[warp];
+#pragma unroll
+  for (int e = lane; e < kTile; e += 32) {
+    const int ry = clampi(oy + e / kT, 0, H - 1);
+    const int rx = clampi(ox + e % kT, 0, W - 1);
+    tile[e] = __ldg(img + (long long)ry * W + rx);
+  }
+  __syncwarp();
+  const float wx = __fsub_rn(x, x0f), wy = __fsub_rn(y, y0f);
   const float ux = __fsub_rn(1.0f, wx), uy = __fsub_rn(1.0f, wy);
-  const float top = __fadd_rn(__fmul_rn(ux, v00), __fmul_rn(wx, v01));
-  const float bot = __fadd_rn(__fmul_rn(ux, v10), __fmul_rn(wx, v11));
-  out[gid] = __fadd_rn(__fmul_rn(uy, top), __fmul_rn(wy, bot));
+  float* o = out + (long long)i * (kP * kP);
+#pragma unroll
+  for (int p = lane; p < kP * kP; p += 32) {
+    const float* t = tile + (p / kP) * kT + p % kP;
+    const float top = __fadd_rn(__fmul_rn(ux, t[0]), __fmul_rn(wx, t[1]));
+    const float bot =
+        __fadd_rn(__fmul_rn(ux, t[kT]), __fmul_rn(wx, t[kT + 1]));
+    o[p] = __fadd_rn(__fmul_rn(uy, top), __fmul_rn(wy, bot));
+  }
+}
+
+template <char V>
+cudaError_t launch(const float* img, int H, int W, const float* uv, int n,
+                   float* out, cudaStream_t s) {
+  probe_patches_kernel<V><<<(n + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      img, H, W, uv, n, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -100,27 +131,12 @@ extern "C" int launch_probe_patches(const float* img, int H, int W,
                                     const float* uv, int n, int variant,
                                     float* out, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + kFeatPerBlock - 1) / kFeatPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case 'A':
-      probe_patches_kernel<'A'><<<grid, kThreads, 0, s>>>(img, H, W, uv, n,
-                                                          out);
-      break;
-    case 'B':
-      probe_patches_kernel<'B'><<<grid, kThreads, 0, s>>>(img, H, W, uv, n,
-                                                          out);
-      break;
-    case 'C':
-      probe_patches_kernel<'C'><<<grid, kThreads, 0, s>>>(img, H, W, uv, n,
-                                                          out);
-      break;
-    case 'D':
-      probe_patches_kernel<'D'><<<grid, kThreads, 0, s>>>(img, H, W, uv, n,
-                                                          out);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 'A': return (int)launch<'A'>(img, H, W, uv, n, out, s);
+    case 'B': return (int)launch<'B'>(img, H, W, uv, n, out, s);
+    case 'C': return (int)launch<'C'>(img, H, W, uv, n, out, s);
+    case 'D': return (int)launch<'D'>(img, H, W, uv, n, out, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Build and bind the port's CUDA kernels (every `csrc/*.cu`).
+"""Build, bind and launch the port's CUDA kernels (every `csrc/*.cu`).
 
 Each source has a plain C interface.  All of them are compiled with nvcc for
 sm_90a, one nvcc per source started together, and linked into one shared
@@ -7,6 +7,12 @@ library under `build/torch_kernels/` at the repository root (a directory
 library is loaded with ctypes.  Its file name carries a hash of every
 source's name and bytes and of the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
+
+The launch plumbing every wrapper shares (`ops/patch_kernels.py`,
+`ops/gather_probe.py`) is here too: `check` and `contiguous` raise on an
+input the kernel does not take (the wrappers convert nothing), `stream` is
+the current raw stream, and `launch` calls a launcher, raises on its
+cudaError_t and adds one to the wrapper module's launch count.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -124,3 +132,43 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def stream(device: int) -> int:
+    """The current stream's cudaStream_t on CUDA device index `device` (a C
+    call, no Python stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def check(t, name: str, dtype, shape, device: int) -> None:
+    """Raise unless t is a `dtype` tensor of `shape` on CUDA device index
+    `device`: the wrappers convert nothing.  (The common case is three
+    attribute reads; the message is built only on failure.)"""
+    try:
+        if (t.dtype is dtype and t.shape == shape
+                and t.get_device() == device):
+            return
+        got = t.dtype
+    except AttributeError:
+        got = type(t).__name__
+    if got is not dtype:
+        raise TypeError(f"{name} must be a {dtype} tensor, got {got}")
+    if t.shape != shape:
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    raise ValueError(f"{name} is on {t.device}, the kernel's other inputs "
+                     f"on CUDA device {device}")
+
+
+def contiguous(t, name: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(counts: dict, name: str, fn_name: str, *args) -> None:
+    """Call launcher `fn_name`; raise if the launch was refused, else add
+    one to `counts[name]`."""
+    rc = getattr(library(), fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
+    counts[name] += 1

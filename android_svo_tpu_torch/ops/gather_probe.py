@@ -18,17 +18,27 @@ and the bilinear weights are uv - floor(uv), once per feature.  Reads outside
 the image clamp to its border (the TPU twins wrap inside their window there;
 on the scripts' uv ranges no read leaves the image).
 
+The kernel gives each feature one warp, which stages the (P+1)^2 window
+once in shared memory (81 image loads instead of 256) and lerps its 64
+pixels from there; it agrees with `probe_patches_plain` bit for bit, for
+any uv (`csrc/gather_probe_kernels.cu`).
+
 Dispatch as in `ops/patch_kernels.py`: the wrapper launches the kernel when
-the image lies on a CUDA device, takes the plain version only for CPU
-tensors, and raises when a launch fails.  Every launch adds one to
-`LAUNCHES["probe_patches_kernel"]`.
+the image lies on a CUDA device and takes the plain version only for CPU
+tensors.  On CUDA it converts nothing: it takes a contiguous (H, W) float32
+image and contiguous (N, 2) float32 uv on the same device, raises
+`TypeError` / `ValueError` on anything else before any launch, and is one
+allocation and one launch on the current raw stream (the launch plumbing
+of `ops/cuda_build.py`, shared with the patch wrappers).  A refused launch
+raises.  Every launch adds one to `LAUNCHES["probe_patches_kernel"]`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from android_svo_tpu_torch.ops.cuda_build import (check, contiguous,
+                                                  launch, stream)
 
 P = 8
 VARIANTS = ("A", "B", "C", "D")
@@ -87,29 +97,25 @@ def probe_patches_plain(img: torch.Tensor, uv: torch.Tensor,
 
 def _probe_kernel(img: torch.Tensor, uv: torch.Tensor,
                   variant: str) -> torch.Tensor:
-    from android_svo_tpu_torch.ops.cuda_build import library
+    """One allocation and one launch; inputs the kernel does not take raise
+    before either."""
     _check_variant(variant)
-    if img.dtype != torch.float32 or img.dim() != 2:
-        raise ValueError(f"img must be (H, W) float32, got "
-                         f"{tuple(img.shape)} {img.dtype}")
-    dev = img.device
-    img = img.contiguous()
+    if img.dtype is not torch.float32:
+        raise TypeError(f"img must be a torch.float32 tensor, got "
+                        f"{img.dtype}")
+    if img.dim() != 2:
+        raise ValueError(f"img must be (H, W), got {tuple(img.shape)}")
+    contiguous(img, "img")
+    dev = img.get_device()
     n = uv.shape[0]
-    uv = uv.to(device=dev, dtype=torch.float32).contiguous()
-    if tuple(uv.shape) != (n, 2):
-        raise ValueError(f"uv must be (N, 2), got {tuple(uv.shape)}")
-    out = torch.empty((n, P, P), dtype=torch.float32, device=dev)
+    check(uv, "uv", torch.float32, (n, 2), dev)
+    contiguous(uv, "uv")
+    out = torch.empty((n, P, P), dtype=torch.float32, device=img.device)
     if n:
         h, w = img.shape
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = library().launch_probe_patches(
-            ctypes.c_void_p(img.data_ptr()), h, w,
-            ctypes.c_void_p(uv.data_ptr()), n, ord(variant),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"probe_patches_kernel launch failed with "
-                               f"cudaError_t {rc}")
-        LAUNCHES["probe_patches_kernel"] += 1
+        launch(LAUNCHES, "probe_patches_kernel", "launch_probe_patches",
+               img.data_ptr(), h, w, uv.data_ptr(), n, ord(variant),
+               out.data_ptr(), stream(dev))
     return out
 
 

@@ -36,7 +36,8 @@ import torch
 
 from android_svo_tpu_torch.geometry.linsolve import inv_spd
 from android_svo_tpu_torch.ops import interp
-from android_svo_tpu_torch.ops.cuda_build import library
+from android_svo_tpu_torch.ops.cuda_build import (check, contiguous,
+                                                  launch, stream)
 
 # feature_alignment.cpp:276: min_update_squared = 0.03*0.03
 MIN_UPDATE_SQUARED = 0.03 * 0.03
@@ -61,14 +62,8 @@ def _on_card(t: torch.Tensor, use_pallas) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# launch plumbing
+# argument packing (the shared checks and launch: `ops/cuda_build.py`)
 # ---------------------------------------------------------------------------
-
-def _stream(device: int) -> int:
-    """The current stream's cudaStream_t on CUDA device index `device` (a C
-    call, no Python stream object)."""
-    return torch._C._cuda_getCurrentRawStream(device)
-
 
 def _stack_args(stack: torch.Tensor):
     if stack.dtype is not torch.float32 or stack.dim() != 3:
@@ -81,35 +76,10 @@ def _stack_args(stack: torch.Tensor):
     return (stack.data_ptr(), s[0], s[1], L, H, W)
 
 
-def _check(t, name: str, dtype, shape, device: int) -> None:
-    """Raise unless t is a `dtype` tensor of `shape` on CUDA device index
-    `device`: the redesigned wrappers convert nothing.  (The common case is
-    three attribute reads; the message is built only on failure.)"""
-    try:
-        if (t.dtype is dtype and t.shape == shape
-                and t.get_device() == device):
-            return
-        got = t.dtype
-    except AttributeError:
-        got = type(t).__name__
-    if got is not dtype:
-        raise TypeError(f"{name} must be a {dtype} tensor, got {got}")
-    if t.shape != shape:
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    raise ValueError(f"{name} is on {t.device}, the stack on device "
-                     f"{device}")
-
-
-def _contiguous(t, name: str) -> None:
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _patch_args(t, name: str, n: int, p: int, device: int):
     """(pointer, stride(0), stride(1)) of an (n, p, p) float32 patch tensor
     with contiguous rows (patch_gradients' strided interior view passes)."""
-    _check(t, name, torch.float32, (n, p, p), device)
+    check(t, name, torch.float32, (n, p, p), device)
     s = t.stride()
     if n and s[2] != 1:
         raise ValueError(f"{name} rows must be contiguous (stride(2) == 1)")
@@ -118,13 +88,6 @@ def _patch_args(t, name: str, n: int, p: int, device: int):
 
 def _nan0(t):
     return torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
-
-
-def _launch(name: str, fn_name: str, *args) -> None:
-    rc = getattr(library(), fn_name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
-    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -159,20 +122,20 @@ def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
     dev = stack.get_device()
     if half < 1:
         raise ValueError(f"half must be >= 1, got {half}")
-    _check(uv, "uv", torch.float32, (n, 2), dev)
-    _check(lvl, "lvl", torch.int32, (n,), dev)
-    _contiguous(lvl, "lvl")
+    check(uv, "uv", torch.float32, (n, 2), dev)
+    check(lvl, "lvl", torch.int32, (n,), dev)
+    contiguous(lvl, "lvl")
     if valid is not None:
-        _check(valid, "valid", torch.bool, (n,), dev)
-        _contiguous(valid, "valid")
+        check(valid, "valid", torch.bool, (n,), dev)
+        contiguous(valid, "valid")
     out = torch.empty((3, n, p, p) if grad else (n, p, p),
                       dtype=torch.float32, device=stack.device)
     if n:
         su = uv.stride()
-        _launch("sample_patches_kernel", "launch_sample_patches",
-                *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[0],
-                su[1], None if valid is None else valid.data_ptr(), n, half,
-                int(grad), out.data_ptr(), _stream(dev))
+        launch(LAUNCHES, "sample_patches_kernel", "launch_sample_patches",
+               *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[0],
+               su[1], None if valid is None else valid.data_ptr(), n, half,
+               int(grad), out.data_ptr(), stream(dev))
     return out.unbind(0) if grad else out
 
 
@@ -256,23 +219,23 @@ def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
         raise ValueError(f"image dims {h}x{w} exceed the stack's "
                          f"{stack_args[4]}x{stack_args[5]}")
     ref = _patch_args(ref_patch, "ref_patch", n, p, dev)
-    _check(uv_a, "uv_a", torch.float32, (n, 2), dev)
-    _check(uv_b, "uv_b", torch.float32, (n, 2), dev)
-    _check(lvl, "lvl", torch.int32, (n,), dev)
-    _contiguous(lvl, "lvl")
+    check(uv_a, "uv_a", torch.float32, (n, 2), dev)
+    check(uv_b, "uv_b", torch.float32, (n, 2), dev)
+    check(lvl, "lvl", torch.int32, (n,), dev)
+    contiguous(lvl, "lvl")
     if n_steps_each is not None:
-        _check(n_steps_each, "n_steps_each", torch.int32, (n,), dev)
-        _contiguous(n_steps_each, "n_steps_each")
+        check(n_steps_each, "n_steps_each", torch.int32, (n,), dev)
+        contiguous(n_steps_each, "n_steps_each")
     best_t = torch.empty((n,), dtype=torch.float32, device=stack.device)
     best_s = torch.empty((n,), dtype=torch.float32, device=stack.device)
     if n:
         sa, sb = uv_a.stride(), uv_b.stride()
-        _launch("epi_scan_kernel", "launch_epi_scan", *stack_args, int(h),
-                int(w), lvl.data_ptr(), uv_a.data_ptr(), sa[0], sa[1],
-                uv_b.data_ptr(), sb[0], sb[1],
-                None if n_steps_each is None else n_steps_each.data_ptr(),
-                *ref, n, int(n_steps_max), half,
-                best_t.data_ptr(), best_s.data_ptr(), _stream(dev))
+        launch(LAUNCHES, "epi_scan_kernel", "launch_epi_scan", *stack_args,
+               int(h), int(w), lvl.data_ptr(), uv_a.data_ptr(), sa[0], sa[1],
+               uv_b.data_ptr(), sb[0], sb[1],
+               None if n_steps_each is None else n_steps_each.data_ptr(),
+               *ref, n, int(n_steps_max), half,
+               best_t.data_ptr(), best_s.data_ptr(), stream(dev))
     return best_t, best_s
 
 
@@ -385,21 +348,22 @@ def _iclk_launch(name: str, fn_name: str, stack, lvl, T, gx, gy, uv0, valid,
     args = [*_patch_args(T, "ref_patch", n, p, dev),
             *_patch_args(gx, "ref_dx", n, p, dev),
             *_patch_args(gy, "ref_dy", n, p, dev)]
-    _check(uv0, "init_uv", torch.float32, (n, 2), dev)
-    _check(lvl, "lvl", torch.int32, (n,), dev)
-    _contiguous(lvl, "lvl")
-    _check(valid, "valid", torch.bool, (n,), dev)
-    _contiguous(valid, "valid")
+    check(uv0, "init_uv", torch.float32, (n, 2), dev)
+    check(lvl, "lvl", torch.int32, (n,), dev)
+    contiguous(lvl, "lvl")
+    check(valid, "valid", torch.bool, (n,), dev)
+    contiguous(valid, "valid")
     device = stack.device
     out_uv = torch.empty((n, 2), dtype=torch.float32, device=device)
     out_conv = torch.empty((n,), dtype=torch.bool, device=device)
     out_mean = torch.empty((n,), dtype=torch.float32, device=device)
     if n:
         su = uv0.stride()
-        _launch(name, fn_name, *stack_args, int(h), int(w), lvl.data_ptr(),
-                *args, uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n,
-                int(n_iter), p // 2, *gates, out_uv.data_ptr(),
-                out_conv.data_ptr(), out_mean.data_ptr(), _stream(dev))
+        launch(LAUNCHES, name, fn_name, *stack_args, int(h), int(w),
+               lvl.data_ptr(), *args, uv0.data_ptr(), su[0], su[1],
+               valid.data_ptr(), n, int(n_iter), p // 2, *gates,
+               out_uv.data_ptr(), out_conv.data_ptr(), out_mean.data_ptr(),
+               stream(dev))
     return out_uv, out_conv, out_mean
 
 

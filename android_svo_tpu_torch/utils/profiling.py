@@ -125,3 +125,29 @@ def dispatch_counts(fn) -> tuple[int, int]:
               and e.cpu_parent.name == _DISPATCH_RANGE):
             n_ops += 1
     return n_ops, n_dev
+
+
+def device_time_us(evt) -> float:
+    """A profiler event's device time in microseconds (the attribute's name
+    differs between torch versions)."""
+    if hasattr(evt, "device_time_total"):
+        return float(evt.device_time_total)
+    return float(evt.cuda_time_total)
+
+
+def device_ms(fn, symbol: str, iters: int = 20):
+    """Device ms per launch of the kernels whose name holds `symbol`, over
+    `iters` calls of `fn` under `torch.profiler` (after one call outside
+    it); None when the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if symbol in evt.key:
+            total_us += device_time_us(evt)
+            count += evt.count
+    return total_us / count / 1e3 if count and total_us > 0 else None

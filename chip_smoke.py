@@ -13,13 +13,18 @@ every phase passed):
                pyramid), with the bounds of the JAX package's kernel gate;
                times each kernel, its plain version and (where one exists) a
                library call with CUDA events, and computes its bound; counts
-               the ATen ops and device activities one call of each patch
-               kernel's wrapper dispatches (at most 4 for the sampler, 3 for
-               the others; exactly 1 device activity).
+               the ATen ops and device activities one call of each kernel's
+               wrapper dispatches (at most 4 for the sampler, 3 for the
+               other patch kernels, 1 for the probe; exactly 1 device
+               activity).
   3b. probe  — probe_patches_kernel variants A-D against their plain version
-               (<= 1e-5) and variant A against interp.extract_patches
-               (<= 1e-4) at N=2048 on 480x640; kernel, plain and grid_sample
-               times and the bound.
+               (<= 1e-5; the kernel is bit-exact, and the line says whether
+               it was) and variant A against interp.extract_patches
+               (<= 1e-4), at N=2048 (the reference's size) and N=32768 on
+               480x640; the card's one-launch floor (the device time of the
+               microbench's trivial op, x8 + 1.0), and at each size variant
+               A's kernel time and bound and its wrapper's time against
+               grid_sample's (B-D's times at N=2048).
   3c. microbench — the gather microbench (tools/microbench_gather.py), the
                probe kernel's path; its launches are counted.
   4. main    — FrameHandler at 640x480, SVOConfig(init_min_disparity=20,
@@ -74,7 +79,8 @@ KERNEL_META = {
 # the README's slice of the port that made each kernel what it is now
 REDESIGNED_IN = {"sample_patches_kernel": "slice 3",
                  "align_iclk_window_kernel": "slice 3",
-                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 4"}
+                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 4",
+                 "probe_patches_kernel": "slice 5"}
 PROBE_REPLACES = (
     "scripts/probe_pallas_patch.py:26 (_kernel), "
     "scripts/microbench_gather.py:133 (patch_kernel), "
@@ -82,6 +88,7 @@ PROBE_REPLACES = (
 SOURCE = "android_svo_tpu_torch/csrc/patch_kernels.cu"
 PROBE_SOURCE = "android_svo_tpu_torch/csrc/gather_probe_kernels.cu"
 N_FRAMES = 40
+PROBE_SIZES = (2048, 32768)   # the reference's N, and 16x it
 N_ORBIT = 148            # bench.py's full orbit (make_poses(148, 0.02))
 SCAN_START, SCAN_LEN = 40, 24
 SCAN_TOL = 0.02          # scan (no BA) vs the default path (BA at its
@@ -116,31 +123,6 @@ def time_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def _device_time_us(evt) -> float:
-    if hasattr(evt, "device_time_total"):
-        return float(evt.device_time_total)
-    return float(evt.cuda_time_total)
-
-
-def device_ms(fn, symbol, iters=20):
-    """Device time of the kernel alone per launch, from the profiler's CUDA
-    activity records; None when the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if symbol in evt.key:
-            total_us += _device_time_us(evt)
-            count += evt.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
 
 
 def bound(bytes_moved, flops):
@@ -219,6 +201,7 @@ def grid_sample_ms(planes, px, py):
     pixels (px, py).  Returns (ms per call, device ms of its kernel)."""
     import torch
     import torch.nn.functional as F
+    from android_svo_tpu_torch.utils.profiling import device_ms
     _, h, w = planes.shape
     grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1],
                        -1)[None]
@@ -324,6 +307,7 @@ def profile_frames(cfg, cam, imgs, device, start, n):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.utils.profiling import device_time_us
 
     handler = fh.FrameHandler(cam, cfg, device=device)
     for img in imgs[:start]:
@@ -347,7 +331,7 @@ def profile_frames(cfg, cam, imgs, device, start, n):
                 st["device_span_ms"] += dur / 1e3 / n
             else:
                 st["host_ms"] += dur / 1e3 / n
-                st["device_ms"] += _device_time_us(e) / 1e3 / n
+                st["device_ms"] += device_time_us(e) / 1e3 / n
     return {"frames": n, "wall_ms_profiled": wall_ms,
             **device_summary(events, n), "stages": stages}
 
@@ -443,7 +427,8 @@ def main() -> int:
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.tools import microbench_gather, reloc_demo
-    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    from android_svo_tpu_torch.utils.profiling import (device_ms,
+                                                       dispatch_counts)
 
     dev = torch.device("cuda")
     # ---- 1. device --------------------------------------------------------
@@ -476,6 +461,7 @@ def main() -> int:
     log(f"grid_sample for sample_patches_kernel: "
         f"{lib_ms['sample_patches_kernel'][0]:.4f} ms, device "
         f"{lib_ms['sample_patches_kernel'][1]} ms [{label}]")
+    pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
     # what the redesigned wrappers dispatch per call on the host
     dispatch = {
         "sample_patches_kernel": [
@@ -496,6 +482,9 @@ def main() -> int:
              lambda: pk.epi_scan(x["stack"], x["lvl"], x["uv_a"], x["uv_b"],
                                  x["ref"], 100, half=4, h=x["h"],
                                  w=x["w"]))],
+        "probe_patches_kernel": [
+            ("variant A, N=2048", 1,
+             lambda: gp.probe_patches(pimg, puv, "A"))],
     }
     host_ops = {}
     for name, cases in dispatch.items():
@@ -548,38 +537,65 @@ def main() -> int:
         f"calls; the scan's two segment ends are two more of its size): "
         f"{add_ms:.4f} ms [{label}]")
 
-    # ---- 3b. probe kernel gate + timings ------------------------------------------
-    pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
-    ref_a = interp.extract_patches(pimg, puv, gp.P // 2)
-    probe = {}
-    for v in gp.VARIANTS:
-        out_k = gp.probe_patches(pimg, puv, v)
-        out_p = gp.probe_patches_plain(pimg, puv, v)
-        torch.cuda.synchronize()
-        d_plain = float((out_k - out_p).abs().max())
-        require(d_plain <= 1e-5, f"probe variant {v}: max |d| vs plain "
-                f"{d_plain} > 1e-5")
-        if v == "A":
-            d_ext = float((out_k - ref_a).abs().max())
-            require(d_ext <= 1e-4, f"probe variant A: max |d| vs "
-                    f"extract_patches {d_ext} > 1e-4")
+    # ---- 3b. probe kernel gate + timings at two sizes ----------------------
+    x8 = torch.zeros((8,), device=dev)
+    floor_ms = device_ms(lambda: x8 + 1.0, "elementwise_kernel", iters=50)
+    log(f"one-launch floor (device time of x8 + 1.0): {floor_ms} ms "
+        f"[{label}]")
+    probe = {}          # variant -> its numbers at N=2048
+    probe_a = {}        # N -> variant A's numbers
+    probe_err = 0.0     # max |d| vs plain over every variant and size
+    for n_p in PROBE_SIZES:
+        img_n, uv_n = ((pimg, puv) if n_p == PROBE_SIZES[0] else
+                       microbench_gather.make_inputs(n=n_p, seed=1,
+                                                     device=dev))
+        ref_a = interp.extract_patches(img_n, uv_n, gp.P // 2)
+        for v in gp.VARIANTS:
+            out_k = gp.probe_patches(img_n, uv_n, v)
+            out_p = gp.probe_patches_plain(img_n, uv_n, v)
+            torch.cuda.synchronize()
+            d_plain = float((out_k - out_p).abs().max())
+            exact = torch.equal(out_k, out_p)
+            probe_err = max(probe_err, d_plain)
+            require(d_plain <= 1e-5, f"probe variant {v}, N={n_p}: max |d| "
+                    f"vs plain {d_plain} > 1e-5")
+            d_ext = None
+            if v == "A":
+                d_ext = float((out_k - ref_a).abs().max())
+                require(d_ext <= 1e-4, f"probe variant A, N={n_p}: max |d| "
+                        f"vs extract_patches {d_ext} > 1e-4")
+            if n_p != PROBE_SIZES[0] and v != "A":
+                log(f"probe {v} N={n_p}: max |d| vs plain {d_plain:.2e}, "
+                    f"bit-exact {exact}")
+                continue
 
-        def call(v=v):
-            return gp.probe_patches(pimg, puv, v)
+            def call(v=v, img_n=img_n, uv_n=uv_n):
+                return gp.probe_patches(img_n, uv_n, v)
 
-        k_ms = time_ms(call)
-        p_ms = time_ms(lambda v=v: gp.probe_patches_plain(pimg, puv, v))
-        d_ms = device_ms(call, "probe_patches_kernel")
-        probe[v] = {"max_abs_err": d_plain, "ms": k_ms, "kernel_ms": d_ms,
-                    "plain_ms": p_ms, "bound": probe_bound(pimg, puv, v)}
-        log(f"probe {v}: max |d| vs plain {d_plain:.2e}, wrapper "
-            f"{k_ms:.4f} ms, device "
-            f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
-            f"{p_ms:.4f} ms, bound {probe[v]['bound'][0]:.5f} ms "
-            f"({probe[v]['bound'][1]}) [{label}]")
-    probe_lib_ms, probe_lib_dev = library_probe_ms(pimg, puv)
-    log(f"probe A: max |d| vs extract_patches {d_ext:.2e}; grid_sample "
-        f"{probe_lib_ms:.4f} ms, device {probe_lib_dev} ms [{label}]")
+            k_ms = time_ms(call)
+            p_ms = time_ms(lambda: gp.probe_patches_plain(img_n, uv_n, v),
+                           iters=10, warmup=2)
+            d_ms = device_ms(call, "probe_patches_kernel")
+            rec = {"max_abs_err": d_plain, "bit_exact": exact, "ms": k_ms,
+                   "kernel_ms": d_ms, "plain_ms": p_ms,
+                   "bound": probe_bound(img_n, uv_n, v)}
+            if n_p == PROBE_SIZES[0]:
+                probe[v] = rec
+            if v == "A":
+                rec["max_err_vs_extract"] = d_ext
+                rec["library_ms"], rec["library_kernel_ms"] = \
+                    library_probe_ms(img_n, uv_n)
+                probe_a[n_p] = rec
+            log(f"probe {v} N={n_p}: max |d| vs plain {d_plain:.2e}, "
+                f"bit-exact {exact}, wrapper {k_ms:.4f} ms, device "
+                f"{'n/a' if d_ms is None else f'{d_ms:.5f}'} ms (floor "
+                f"{floor_ms} ms), plain {p_ms:.4f} ms, bound "
+                f"{rec['bound'][0]:.5f} ms ({rec['bound'][1]}) [{label}]")
+        ra = probe_a[n_p]
+        log(f"probe A N={n_p}: max |d| vs extract_patches "
+            f"{ra['max_err_vs_extract']:.2e}; wrapper {ra['ms']:.4f} ms vs "
+            f"grid_sample {ra['library_ms']:.4f} ms (device "
+            f"{ra['library_kernel_ms']} ms), same run [{label}]")
 
     # ---- 3c. the gather microbench (the probe kernel's path) -------------------
     gp.reset_launch_counts()
@@ -757,22 +773,32 @@ def main() -> int:
             "card": label})
         kernels[-1].update(host_ops_per_call=host_ops[name],
                            redesigned_in=REDESIGNED_IN[name])
-    pa = probe["A"]
+    pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",
         "source": PROBE_SOURCE, "replaces": PROBE_REPLACES,
         "launches": probe_launches,
         "launches_by_path": {"microbench": probe_launches},
-        "max_abs_err": max(p["max_abs_err"] for p in probe.values()),
+        "max_abs_err": probe_err,
         "ms": pa["ms"], "kernel_ms": pa["kernel_ms"],
         "plain_ms": pa["plain_ms"], "bound_ms": pa["bound"][0],
         "bound_by": pa["bound"][1], "bound_bytes": pa["bound"][2],
-        "bound_flops": pa["bound"][3], "library_ms": probe_lib_ms,
-        "library_kernel_ms": probe_lib_dev,
+        "bound_flops": pa["bound"][3], "library_ms": pa["library_ms"],
+        "library_kernel_ms": pa["library_kernel_ms"],
+        "host_ops_per_call": host_ops["probe_patches_kernel"],
+        "redesigned_in": REDESIGNED_IN["probe_patches_kernel"],
+        "floor_ms": floor_ms,
+        f"n{PROBE_SIZES[1]}": {
+            "ms": big["ms"], "kernel_ms": big["kernel_ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound"][0],
+            "bound_by": big["bound"][1], "library_ms": big["library_ms"],
+            "library_kernel_ms": big["library_kernel_ms"],
+            "max_abs_err": big["max_abs_err"]},
         "variants": {v: {"ms": p["ms"], "kernel_ms": p["kernel_ms"],
                          "plain_ms": p["plain_ms"],
                          "bound_ms": p["bound"][0],
-                         "max_abs_err": p["max_abs_err"]}
+                         "max_abs_err": p["max_abs_err"],
+                         "bit_exact": p["bit_exact"]}
                      for v, p in probe.items()},
         "card": label})
     print(json.dumps({"microbench_gather": mb}), flush=True)

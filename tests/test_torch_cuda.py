@@ -51,34 +51,89 @@ def test_wrapper_launches_and_counts(problem, name):
     assert pk.LAUNCHES[name] == 1
 
 
-@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
-def test_probe_kernel_matches_plain(card, variant):
-    """probe_patches_kernel against probe_patches_plain at the microbench's
-    size; the kernel rounds each operation as the plain version does."""
+def _same(a, b):
+    """Equal values, with NaN where the other has NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 2049, 32768])
+def test_probe_kernel_matches_plain(card, n):
+    """probe_patches_kernel against probe_patches_plain, bit for bit, every
+    variant, at sizes with partial blocks and warps (8 features per block)
+    and at 16x the microbench's N: the kernel stages the plain version's
+    clamped taps and rounds each operation as the plain version does."""
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.tools.microbench_gather import make_inputs
-    img, uv = make_inputs(seed=2, device=card)
-    gp.reset_launch_counts()
-    out = gp.probe_patches(img, uv, variant)
-    torch.cuda.synchronize()
-    assert gp.LAUNCHES["probe_patches_kernel"] == 1
-    ref = gp.probe_patches_plain(img, uv, variant)
-    assert float((out - ref).abs().max()) <= 1e-5
-
-
-def test_probe_kernel_clamps_off_image(card):
-    """Off the scripts' ranges the kernel clamps its reads like the plain
-    version (no fault, same values)."""
-    from android_svo_tpu_torch.ops import gather_probe as gp
-    img = torch.rand((40, 300), device=card)
-    uv = torch.tensor([[-30.2, -7.9], [299.6, 45.1], [3.5, 1.25],
-                       [float("nan"), 20.0]], device=card)
+    img, uv = make_inputs(n=n, seed=2, device=card)
     for v in gp.VARIANTS:
+        gp.reset_launch_counts()
         out = gp.probe_patches(img, uv, v)
         torch.cuda.synchronize()
-        ref = gp.probe_patches_plain(img, uv, v)
-        torch.testing.assert_close(out, ref, atol=1e-6, rtol=0,
-                                   equal_nan=True)
+        assert gp.LAUNCHES["probe_patches_kernel"] == (1 if n else 0)
+        assert out.shape == (n, gp.P, gp.P)
+        assert torch.equal(out, gp.probe_patches_plain(img, uv, v)), v
+
+
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_probe_kernel_clamps_off_image(card, variant):
+    """Off the scripts' ranges (off-image and border uv, NaN, +-inf and
+    +-1e6) the kernel clamps its reads like the plain version: no fault,
+    the same bits, NaN where the plain version has NaN."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    g = torch.Generator(device=card).manual_seed(4)
+    img = torch.rand((480, 640), generator=g, device=card)
+    r = torch.rand((4096, 2), generator=g, device=card)
+    uv = r * torch.tensor([800.0, 640.0], device=card) - 80.0
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             1e6, -1e6, 0.0, 639.5, 479.99], device=card)
+    pick = torch.randint(0, 8, (4096, 2), generator=g, device=card)
+    mask = torch.rand((4096, 2), generator=g, device=card) < 0.3
+    uv = torch.where(mask, specials[pick], uv).contiguous()
+    out = gp.probe_patches(img, uv, variant)
+    torch.cuda.synchronize()
+    assert _same(out, gp.probe_patches_plain(img, uv, variant))
+
+
+@pytest.mark.parametrize("bad", ["uv_float64", "uv_strided", "uv_n3",
+                                 "uv_on_cpu", "img_strided"])
+def test_probe_checks_before_launch(card, bad):
+    """Every input the kernel does not take raises before any launch; the
+    wrapper converts nothing."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    from android_svo_tpu_torch.tools.microbench_gather import make_inputs
+    img, uv = make_inputs(n=64, seed=5, device=card)
+    if bad == "uv_float64":
+        uv = uv.double()
+    elif bad == "uv_strided":
+        uv = uv.t().contiguous().t()
+    elif bad == "uv_n3":
+        uv = torch.cat([uv, uv[:, :1]], 1)
+    elif bad == "uv_on_cpu":
+        uv = uv.cpu()
+    else:
+        img = img.t().contiguous().t()
+    gp.reset_launch_counts()
+    with pytest.raises(TypeError if bad == "uv_float64" else ValueError):
+        gp.probe_patches(img, uv, "A")
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES["probe_patches_kernel"] == 0
+
+
+@pytest.mark.parametrize("variant", ["A", "D"])
+def test_probe_dispatch_counts(card, variant):
+    """One call of the probe wrapper: at most 1 ATen op (the output
+    allocation) and exactly 1 device activity, one launch counted."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    from android_svo_tpu_torch.tools.microbench_gather import make_inputs
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    img, uv = make_inputs(seed=6, device=card)
+    gp.probe_patches(img, uv, variant)              # build and warm up
+    gp.reset_launch_counts()
+    n_ops, n_dev = dispatch_counts(lambda: gp.probe_patches(img, uv,
+                                                            variant))
+    assert n_ops <= 1 and n_dev == 1, (n_ops, n_dev)
+    assert gp.LAUNCHES["probe_patches_kernel"] == 1
 
 
 def _nan0(t):

@@ -127,3 +127,135 @@ def test_unknown_variant_raises():
     with pytest.raises(ValueError, match="variant"):
         gather_probe.probe_patches(torch.zeros(16, 16), torch.zeros(1, 2),
                                    "E")
+
+
+def _staged_lerp(img, uv, variant):
+    """The kernel's schedule in PyTorch: stage each feature's clamped 9x9
+    window once (element e = (e // 9, e % 9) from the variant's origin),
+    then lerp every output pixel from tile entries [r][c], [r][c+1],
+    [r+1][c] and [r+1][c+1] with the weights taken once per feature."""
+    h, w = img.shape
+    t = P + 1
+    oy, ox = gather_probe.window_origin(uv, variant, h, w)
+    e = torch.arange(t * t)
+    rows = (oy[:, None] + e // t).clamp(0, h - 1)
+    cols = (ox[:, None] + e % t).clamp(0, w - 1)
+    tile = img[rows, cols].reshape(-1, t, t)
+    p = torch.arange(P * P)
+    r, c = p // P, p % P
+    wx = (uv[:, 0] - torch.floor(uv[:, 0]))[:, None]
+    wy = (uv[:, 1] - torch.floor(uv[:, 1]))[:, None]
+    top = (1 - wx) * tile[:, r, c] + wx * tile[:, r, c + 1]
+    bot = (1 - wx) * tile[:, r + 1, c] + wx * tile[:, r + 1, c + 1]
+    return ((1 - wy) * top + wy * bot).reshape(-1, P, P)
+
+
+def _uv_set(name):
+    """The scripts' range; borders and off-image; NaN and +-1e6 (mixed
+    with finite coordinates, so both kinds of row occur)."""
+    rng = np.random.default_rng(5)
+    if name == "scripts":
+        return _inputs(5, 5.5, 6.5)[1]
+    if name == "borders":
+        xs = np.array([-40.7, -9.0, -4.5, -0.25, 0.0, 0.5, 3.99, 127.5,
+                       255.9, W - 8.5, W - 4.0, W - 1.0, W - 0.01, W + 0.5,
+                       W + 3.0, W + 55.2], np.float32)
+        ys = np.array([-33.3, -8.0, -4.01, -0.75, 0.0, 1.5, 7.5, 15.99,
+                       H - 9.5, H - 5.0, H - 1.0, H - 0.5, H, H + 2.25,
+                       H + 8.0, H + 71.6], np.float32)
+        grid = np.stack(np.meshgrid(xs, ys, indexing="ij"), -1)
+        return grid.reshape(-1, 2).astype(np.float32)
+    specials = np.array([np.nan, 1e6, -1e6], np.float32)
+    uv = _inputs(6, 5.5, 6.5)[1][:64].copy()
+    uv[0::4, 0] = specials[rng.integers(0, 3, 16)]
+    uv[1::4, 1] = specials[rng.integers(0, 3, 16)]
+    uv[2::4] = specials[rng.integers(0, 3, (16, 2))]
+    return uv
+
+
+def _same(a, b):
+    """Equal values, with NaN where the other has NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+@pytest.mark.parametrize("uv_set", ["scripts", "borders", "nan_huge"])
+@pytest.mark.parametrize("variant", gather_probe.VARIANTS)
+def test_window_staging_is_exact(variant, uv_set):
+    """Clamping acts on each coordinate alone, so the plain version's taps
+    are entries of the staged window: lerping from the staged tile gives
+    probe_patches_plain's result exactly, for any uv."""
+    img = torch.from_numpy(_inputs(5, 5.5, 6.5)[0])
+    uv = torch.from_numpy(_uv_set(uv_set))
+    got = _staged_lerp(img, uv, variant)
+    want = gather_probe.probe_patches_plain(img, uv, variant)
+    assert got.shape == want.shape == (uv.shape[0], P, P)
+    assert _same(got, want)
+    if uv_set == "nan_huge":                 # both kinds of row occur
+        rows = torch.isnan(want).flatten(1).all(1)
+        assert rows.any() and not rows.all()
+        assert torch.isfinite(want[~rows]).all()
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["img_float64", "img_3d", "img_strided",
+                                 "uv_float64", "uv_strided", "uv_n3",
+                                 "variant"])
+def test_kernel_path_checks_before_launch(bad):
+    """The CUDA path converts nothing: an image or uv of another type,
+    shape or layout, or an unknown variant, raises before any allocation
+    or launch (its checks run here on CPU tensors)."""
+    img = torch.zeros((16, 24))
+    uv = torch.full((5, 2), 8.0)
+    variant = "A"
+    if bad == "img_float64":
+        img = img.double()
+    elif bad == "img_3d":
+        img = img[None]
+    elif bad == "img_strided":
+        img = img.t()
+    elif bad == "uv_float64":
+        uv = uv.double()
+    elif bad == "uv_strided":
+        uv = torch.full((2, 5), 8.0).t()
+    elif bad == "uv_n3":
+        uv = torch.full((5, 3), 8.0)
+    else:
+        variant = "E"
+    gather_probe.reset_launch_counts()
+    err = TypeError if bad.endswith("float64") else ValueError
+    with pytest.raises(err):
+        gather_probe._probe_kernel(img, uv, variant)
+    assert gather_probe.LAUNCHES["probe_patches_kernel"] == 0
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KEPT_PATCHES = sorted((ROOT / "build").glob("probe_patches_*.patch"))
+
+
+@pytest.mark.parametrize("patch", KEPT_PATCHES,
+                         ids=[p.stem for p in KEPT_PATCHES])
+def test_kept_variant_patches_apply(patch):
+    """Each kernel variant kept as a patch under build/ applies to the
+    current source (probe_ab rebuilds it from there), and a source whose
+    context lines differ is refused rather than patched elsewhere."""
+    from android_svo_tpu_torch.ops import cuda_build
+    from android_svo_tpu_torch.tools.probe_ab import apply_patch
+    src = (cuda_build.CSRC / "gather_probe_kernels.cu").read_text()
+    text = patch.read_text()
+    out = apply_patch(src, text)
+    added = [ln[1:] for ln in text.splitlines(keepends=True)
+             if ln.startswith("+") and not ln.startswith("+++")]
+    assert out != src and all(ln in out for ln in added)
+    with pytest.raises(ValueError, match="does not apply"):
+        apply_patch(src.replace("  __syncwarp();", "  __syncwarp(); "), text)
+
+
+def test_probe_ab_refuses_without_card(monkeypatch):
+    """The A/B tool times the card; without one it raises before building
+    anything."""
+    from android_svo_tpu_torch.tools import probe_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        probe_ab.run({"this": ""})
