@@ -104,7 +104,7 @@ class SVOConfig:
     max_obs_per_point: int = 8
     reproj_thresh: float = 4.0
 
-    # ---- local bundle adjustment (not ported yet: loba_n_iter must be 0) ----------
+    # ---- local bundle adjustment (after each keyframe; 0 turns it off) ----------
     loba_n_iter: int = 5
     loba_point_budget: int = 2048
     loba_num_kfs: int = 4
@@ -131,10 +131,3 @@ class SVOConfig:
     def img_align_patch_size(self) -> int:
         return 2 * self.img_align_patch_halfsize
 
-
-def not_ported(field: str, value) -> NotImplementedError:
-    """The error a branch of the JAX package that the port has not carried
-    over yet raises, naming the config field that selects it."""
-    return NotImplementedError(
-        f"SVOConfig.{field}={value!r} selects a branch not ported to "
-        f"android_svo_tpu_torch yet")

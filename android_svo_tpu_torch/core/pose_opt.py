@@ -1,12 +1,12 @@
-"""Motion-only bundle adjustment (pose GN with Tukey weights and
-trust-region step acceptance) — port of `android_svo_tpu/core/pose_opt.py`
-(GN only; `poseoptim_method="lm"` raises)."""
+"""Motion-only bundle adjustment (pose Gauss-Newton or Levenberg-Marquardt
+with Tukey weights and trust-region step acceptance) — port of
+`android_svo_tpu/core/pose_opt.py`."""
 
 from __future__ import annotations
 
 import torch
 
-from android_svo_tpu_torch.config import SVOConfig, not_ported
+from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.geometry import robust
 from android_svo_tpu_torch.geometry.camera import project2d
 from android_svo_tpu_torch.geometry.linsolve import inv_spd, solve_spd
@@ -17,9 +17,13 @@ from android_svo_tpu_torch.ops.sparse_align import _geo_jacobian
 def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
                   cfg: SVOConfig):
     """Refine a frame pose against its matched 3D points.  Returns
-    (T_fw, inlier_mask, n_inliers, cov, chi2_init, chi2_final)."""
-    if cfg.poseoptim_method != "gn":
-        raise not_ported("poseoptim_method", cfg.poseoptim_method)
+    (T_fw, inlier_mask, n_inliers, cov, chi2_init, chi2_final).
+
+    `cfg.poseoptim_method == "lm"` scales the normal equations' diagonal by
+    (1 + mu), mu starting at 0.01, relaxing to max(mu/3, 1e-8) on an
+    accepted step and growing tenfold on a rejected one; any other method
+    is Gauss-Newton, as in the JAX package."""
+    lm = cfg.poseoptim_method == "lm"
     dtype = p_w.dtype
     dev = p_w.device
     lvl_scale = 1.0 / (2.0 ** level.to(dtype))
@@ -53,6 +57,8 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
         return J, Jw, torch.einsum("cij,cik->jk", Jw, J)
 
     q, t = T_fw_init.q, T_fw_init.t
+    # LM damping; nothing is made for GN (no device work on the default path)
+    mu = torch.tensor(0.01, dtype=dtype, device=dev) if lm else None
     for it in range(cfg.poseoptim_n_iter):
         # Tukey scale re-seated at ~1 px from iteration 5 on
         it_scale = scale_fixed if it >= 5 else scale0
@@ -60,6 +66,8 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
         chi2, e, xyz_f, ok, w = weighted_chi2(T, it_scale)
         J, Jw, H = normal_eq(xyz_f, w)
         g = torch.einsum("cij,ci->j", Jw, e)
+        if lm:
+            H = H + mu * torch.diag(torch.diag(H))
         H = H + 1e-6 * eye6 * (torch.trace(H) / 6.0 + 1.0)
         dx = solve_spd(H, -g)
         T_new = SE3.exp(dx).compose(T).normalize()
@@ -67,6 +75,9 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
         accept = chi2_new < chi2
         q = torch.where(accept, T_new.q, q)
         t = torch.where(accept, T_new.t, t)
+        if lm:
+            mu = torch.where(accept, torch.clamp(mu / 3.0, min=1e-8),
+                             mu * 10.0)
     scale = scale_fixed if cfg.poseoptim_n_iter > 5 else scale0
     T_out = SE3(q=q, t=t)
 

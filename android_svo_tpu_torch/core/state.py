@@ -186,18 +186,29 @@ _SUBS = {"kfs": KeyframeArena, "points": PointArena, "seeds": SeedArena,
          "last": FrameState}
 
 
-def state_to_numpy(vo: VOState) -> dict:
-    """Flat {field path: numpy array} view of a state (copies to host)."""
-    out = {}
+def field_paths() -> list:
+    """Every tensor of a state by its field path, in declaration order —
+    the order the JAX state's pytree flattens in."""
+    out = []
     for f in dataclasses.fields(VOState):
-        val = getattr(vo, f.name)
         if f.name in _SUBS:
-            for g in dataclasses.fields(_SUBS[f.name]):
-                out[f"{f.name}.{g.name}"] = (
-                    getattr(val, g.name).detach().cpu().numpy())
+            out += [f"{f.name}.{g.name}"
+                    for g in dataclasses.fields(_SUBS[f.name])]
         else:
-            out[f.name] = val.detach().cpu().numpy()
+            out.append(f.name)
     return out
+
+
+def get_field(vo: VOState, path: str) -> torch.Tensor:
+    for name in path.split("."):
+        vo = getattr(vo, name)
+    return vo
+
+
+def state_to_numpy(vo: VOState) -> dict:
+    """Flat {field path: numpy array} view of a state (copies to host), in
+    `field_paths()` order."""
+    return {k: get_field(vo, k).detach().cpu().numpy() for k in field_paths()}
 
 
 def state_from_numpy(d: dict, device=None) -> VOState:

@@ -47,6 +47,29 @@ def make_texture(generator: torch.Generator, size: int = 1024,
     return mixed * 255.0
 
 
+def make_edge_texture(generator: torch.Generator, size: int = 1024,
+                      noise_band: float = 0.18, device=None) -> torch.Tensor:
+    """Low-corner, edge-rich texture for the edgelet path: concentric
+    intensity rings (step edges in every orientation, almost no corners)
+    on a gentle radial ramp, with a horizontal band of `make_texture` noise
+    across the middle (`noise_band` of the height) that keeps corners for
+    the two-frame bootstrap.  Outside the band it equals the JAX texture
+    exactly."""
+    dev = resolve_device(device)
+    idx = torch.arange(size, dtype=torch.float32, device=dev)
+    yy, xx = torch.meshgrid(idx, idx, indexing="ij")
+    c = size / 2.0
+    # the square root in fp64, rounded once to fp32: torch's vectorised
+    # fp32 sqrt on the CPU is not always correctly rounded, XLA's is
+    r = torch.sqrt(((xx - c) ** 2 + (yy - c) ** 2).double()).float()
+    rings = torch.remainder(torch.floor(r / 28.0), 2) * 200.0 + 25.0
+    rings = rings + 0.01 * r
+    noise = make_texture(generator, size, device=dev)
+    band = (torch.abs(yy / size - 0.5) < noise_band / 2).to(torch.float32)
+    img = rings * (1 - band) + noise * band
+    return torch.clamp(img, 0.0, 255.0)
+
+
 def default_camera(width: int = 640, height: int = 480,
                    device=None) -> PinholeCamera:
     return PinholeCamera.create(width, height, 420.0, 420.0,

@@ -1,6 +1,6 @@
-"""Pinhole camera model as batched tensor functions — port of the
-`PinholeCamera` of `android_svo_tpu/geometry/camera.py` (radtan distortion
-with the `distortion_free` fast path).  The ATAN model is not ported yet.
+"""Camera models as batched tensor functions — port of
+`android_svo_tpu/geometry/camera.py`: `PinholeCamera` (radtan distortion
+with the `distortion_free` fast path) and `ATANCamera` (the FOV model).
 
 Pixel convention: px[..., 0] = u (column), px[..., 1] = v (row), origin at
 the centre of the top-left pixel.
@@ -94,3 +94,69 @@ class PinholeCamera:
                            (px[..., 1] - self.cy) / self.fy], dim=-1)
         xyz = unproject2d(self.undistort(uvd))
         return xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+
+
+@dataclass
+class ATANCamera:
+    """FOV/ATAN model: rd = atan(2 r tan(s/2)) / s on the unit plane.
+    Intrinsics are in pixels."""
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    s: torch.Tensor                         # FOV distortion parameter omega
+    width: int = 752
+    height: int = 480
+
+    @classmethod
+    def create(cls, width, height, fx, fy, cx, cy, s,
+               dtype=torch.float32, device=None) -> "ATANCamera":
+        def scalar(v):
+            return torch.tensor(float(v), dtype=dtype, device=device)
+
+        return cls(fx=scalar(fx), fy=scalar(fy), cx=scalar(cx), cy=scalar(cy),
+                   s=scalar(s), width=int(width), height=int(height))
+
+    def errorMultiplier2(self) -> torch.Tensor:
+        return self.fx
+
+    def _rd_factor(self, r: torch.Tensor) -> torch.Tensor:
+        """rd / r, with its limit below r = 1e-6."""
+        two_tan_half = 2.0 * torch.tan(self.s / 2.0)
+        small = r < 1e-6
+        rs = torch.where(small, torch.full_like(r, 1e-6), r)
+        return torch.where(small, two_tan_half / self.s,
+                           torch.atan(rs * two_tan_half) / (rs * self.s))
+
+    def _ru_factor(self, rd: torch.Tensor) -> torch.Tensor:
+        """r / rd (the inverse distortion), with its limit below 1e-6."""
+        two_tan_half = 2.0 * torch.tan(self.s / 2.0)
+        small = rd < 1e-6
+        rds = torch.where(small, torch.full_like(rd, 1e-6), rd)
+        return torch.where(small, self.s / two_tan_half,
+                           torch.tan(rds * self.s) / (rds * two_tan_half))
+
+    def world2cam_uv(self, uv: torch.Tensor) -> torch.Tensor:
+        uvd = uv * self._rd_factor(torch.linalg.norm(uv, dim=-1))[..., None]
+        return torch.stack([self.fx * uvd[..., 0] + self.cx,
+                            self.fy * uvd[..., 1] + self.cy], dim=-1)
+
+    def world2cam(self, xyz: torch.Tensor) -> torch.Tensor:
+        return self.world2cam_uv(project2d(xyz))
+
+    def cam2world(self, px: torch.Tensor) -> torch.Tensor:
+        uvd = torch.stack([(px[..., 0] - self.cx) / self.fx,
+                           (px[..., 1] - self.cy) / self.fy], dim=-1)
+        rd = torch.linalg.norm(uvd, dim=-1)
+        xyz = unproject2d(uvd * self._ru_factor(rd)[..., None])
+        return xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+
+    def is_in_frame(self, px: torch.Tensor, boundary: float = 0.0,
+                    level: int = 0) -> torch.Tensor:
+        """Pixel inside the image at pyramid `level`, `boundary` px in."""
+        scale = float(2 ** level)
+        w = self.width / scale
+        h = self.height / scale
+        return ((px[..., 0] >= boundary) & (px[..., 0] < w - boundary)
+                & (px[..., 1] >= boundary) & (px[..., 1] < h - boundary))

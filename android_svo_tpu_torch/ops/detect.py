@@ -1,13 +1,13 @@
 """Feature detection: dense Shi-Tomasi + vectorized FAST with one corner per
-grid cell — port of `android_svo_tpu/ops/detect.py` (corners only; the
-edgelet fallback is not ported yet and raises)."""
+grid cell, and (with `cfg.edgelet_detection`) the strongest-gradient
+EDGELET in cells with no corner — port of `android_svo_tpu/ops/detect.py`."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from android_svo_tpu_torch.config import SVOConfig, not_ported
+from android_svo_tpu_torch.config import SVOConfig
 
 FAST_RING = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -16,6 +16,7 @@ FAST_RING = (
 EDGE_MARGIN = 8
 
 FTYPE_CORNER = 0
+FTYPE_EDGELET = 1
 
 
 def _box_sum(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -110,10 +111,12 @@ def _lexsort(keys):
 
 
 def detect_features(pyr, occupied_cells, cfg: SVOConfig, n_levels=None):
-    """Best corner per grid cell across pyramid levels.  Returns a dict of
-    per-cell arrays: px (level-0), level, score, valid, ftype, grad."""
-    if cfg.edgelet_detection:
-        raise not_ported("edgelet_detection", cfg.edgelet_detection)
+    """Best corner per grid cell across pyramid levels; with
+    `cfg.edgelet_detection` a cell with no qualifying corner takes its
+    strongest-gradient pixel as an EDGELET (score |grad|^2, unit gradient
+    direction in `grad`) when |grad| > `cfg.edgelet_grad_min`.  Returns a
+    dict of per-cell arrays: px (level-0), level, score, valid, ftype,
+    grad."""
     n_levels = n_levels if n_levels is not None else cfg.n_pyr_levels
     h, w = pyr[0].shape
     g = cfg.grid_size
@@ -124,8 +127,8 @@ def detect_features(pyr, occupied_cells, cfg: SVOConfig, n_levels=None):
     dtype = pyr[0].dtype
     dev = pyr[0].device
 
-    best_score = []
-    best_xy = []
+    best_score, best_xy = [], []
+    eg_score, eg_xy, eg_dir = [], [], []
     for level in range(n_levels):
         img = pyr[level]
         hl, wl = img.shape
@@ -143,6 +146,27 @@ def detect_features(pyr, occupied_cells, cfg: SVOConfig, n_levels=None):
         best_score.append(cmax)
         best_xy.append(torch.stack([cx.to(dtype) * scale,
                                     cy.to(dtype) * scale], dim=-1))
+
+        if cfg.edgelet_detection:
+            # central differences span 2 px: x0.25 puts |grad|^2 in
+            # per-pixel units
+            dx, dy = _central_diff(img)
+            gmag = _mask_margin(0.25 * (dx * dx + dy * dy), EDGE_MARGIN)
+            gmag = F.pad(gmag, (0, pw - wl, 0, ph - hl))
+            emax, eyl, exl = _cell_reduce(gmag, n_rows, n_cols, gl)
+            ey = torch.arange(n_rows, device=dev)[:, None] * gl + eyl
+            ex = torch.arange(n_cols, device=dev)[None, :] * gl + exl
+            # the argmax may sit in the grid's padding: read the gradient
+            # at the clipped pixel, as the JAX gather clamps
+            eyc = torch.clamp(ey, 0, hl - 1)
+            exc = torch.clamp(ex, 0, wl - 1)
+            gdx = dx[eyc, exc]
+            gdy = dy[eyc, exc]
+            norm = torch.sqrt(torch.clamp(gdx * gdx + gdy * gdy, min=1e-12))
+            eg_score.append(emax)
+            eg_xy.append(torch.stack([ex.to(dtype) * scale,
+                                      ey.to(dtype) * scale], dim=-1))
+            eg_dir.append(torch.stack([gdx / norm, gdy / norm], dim=-1))
     best_score = torch.stack(best_score, 0)
     best_xy = torch.stack(best_xy, 0)
 
@@ -157,6 +181,25 @@ def detect_features(pyr, occupied_cells, cfg: SVOConfig, n_levels=None):
     valid = score > cfg.triang_min_corner_score
     ftype = torch.zeros((n_cells,), dtype=torch.int32, device=dev)
     grad = torch.zeros((n_cells, 2), dtype=dtype, device=dev)
+
+    if cfg.edgelet_detection:
+        eg_score = torch.stack(eg_score, 0)
+        elvl = torch.argmax(eg_score, dim=0)               # first maximum
+        escore = torch.amax(eg_score, dim=0).reshape(n_cells)
+        pick = elvl[None, :, :, None].expand(1, n_rows, n_cols, 2)
+        exy = torch.gather(torch.stack(eg_xy, 0), 0, pick)[0].reshape(
+            n_cells, 2)
+        edir = torch.gather(torch.stack(eg_dir, 0), 0, pick)[0].reshape(
+            n_cells, 2)
+        elvl = elvl.reshape(n_cells).to(torch.int32)
+        # a corner wins its cell; an edgelet needs a strong gradient
+        is_edge = ~valid & (escore > cfg.edgelet_grad_min ** 2)
+        xy = torch.where(is_edge[:, None], exy, xy)
+        lvl = torch.where(is_edge, elvl, lvl)
+        score = torch.where(is_edge, escore, score)
+        ftype = torch.where(is_edge, FTYPE_EDGELET, ftype)
+        grad = torch.where(is_edge[:, None], edir, grad)
+        valid = valid | is_edge
 
     if occupied_cells is not None:
         valid = valid & ~occupied_cells

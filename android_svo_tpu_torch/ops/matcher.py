@@ -1,24 +1,24 @@
-"""Patch warping and direct matching — port of the parts of
-`android_svo_tpu/ops/matcher.py` on the tracking path: the affine warp out
-of the keyframe arena, search-level selection, ZMSSD, the cached direct
-match (`match_cached`) and the epipolar search (`find_epipolar_match`).
-
-`find_match_direct`, the 1D alignment (`epi_search_1d`) and the edgelet
-branches are not ported yet and raise.
+"""Patch warping and direct matching — port of
+`android_svo_tpu/ops/matcher.py`: the affine warp out of the keyframe
+arena, search-level selection, ZMSSD, 1D alignment along a direction
+(edgelets and `epi_search_1d`), the cached direct match (`match_cached`),
+the uncached one (`find_match_direct`) and the epipolar search
+(`find_epipolar_match`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from android_svo_tpu_torch.config import SVOConfig, not_ported
+from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.geometry.camera import project2d
-from android_svo_tpu_torch.geometry.linsolve import det2x2, inv2x2
+from android_svo_tpu_torch.geometry.linsolve import det2x2, inv2x2, inv_spd
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.geometry.triangulation import (
     depth_from_triangulation)
 from android_svo_tpu_torch.ops import interp
 from android_svo_tpu_torch.ops import patch_kernels as pk
+from android_svo_tpu_torch.ops.detect import FTYPE_EDGELET
 from android_svo_tpu_torch.ops.feature_align import patch_gradients
 
 
@@ -112,6 +112,50 @@ def _zmssd_accept(cur_stack, search_level, ref_patch, uv_out, ok,
     return ok & textured & (score < cfg.zmssd_threshold_factor * area)
 
 
+def align1d_stack(stack, lvl, ref_patch, ref_dx, ref_dy, direction,
+                  init_uv, valid, n_iter: int, h: int, w: int,
+                  use_pallas=True):
+    """Batched 1D ICLK along each feature's unit `direction` (N, 2), with a
+    mean-brightness term, on the stack at per-feature levels.  Every
+    iteration samples the current patches with `sample_patches` (valid =
+    the features still inside the level's margin).  Returns (uv, converged,
+    mean)."""
+    n, p, _ = ref_patch.shape
+    area = p * p
+    half = p // 2
+    dtype = init_uv.dtype
+    T = ref_patch.reshape(n, area)
+    gdir = (direction[:, 0:1] * ref_dx.reshape(n, area)
+            + direction[:, 1:2] * ref_dy.reshape(n, area))
+    J = torch.stack([gdir, torch.ones_like(gdir)], dim=-1)
+    H = torch.einsum("nai,naj->nij", J, J) + 1e-6 * torch.eye(
+        2, dtype=dtype, device=init_uv.device)
+    Hinv = inv_spd(H)
+    lvl = torch.clamp(lvl.to(torch.int32), 0, stack.shape[0] - 1)
+    wl = (w >> lvl).to(dtype)
+    hl = (h >> lvl).to(dtype)
+    m = half + 1.0
+
+    def inb(uv):
+        return ((uv[..., 0] >= m) & (uv[..., 0] < wl - 1 - m)
+                & (uv[..., 1] >= m) & (uv[..., 1] < hl - 1 - m))
+
+    uv = init_uv
+    mean = torch.zeros((n,), dtype=dtype, device=init_uv.device)
+    for _ in range(n_iter):
+        ok = valid & inb(uv)
+        cur = pk.sample_patches(stack, lvl, uv, half, valid=ok,
+                                use_pallas=use_pallas).reshape(n, area)
+        r = cur - T + mean[:, None]
+        g = torch.einsum("nai,na->ni", J, r)
+        upd = torch.einsum("nij,nj->ni", Hinv, g)
+        uv = torch.where(ok[:, None], uv - upd[:, 0:1] * direction, uv)
+        mean = torch.where(ok, mean - upd[:, 1], mean)
+    ok = valid & inb(uv)
+    drift = torch.linalg.norm(uv - init_uv, dim=-1)
+    return uv, ok & (drift < p), mean
+
+
 def compute_warp_batch(kf_stack, kf_idx, cam, px_ref, f_ref, depth_ref,
                        level_ref, T_cur_ref: SE3, valid, cfg: SVOConfig,
                        ref_grad=None):
@@ -150,51 +194,100 @@ def identity_warp_patches(kf_stack, kf_idx, px_ref, level_ref, valid,
 
 def match_cached(cur_stack, cam, ref_patch_b, search_level, px_cur_init,
                  valid, cfg: SVOConfig, warp_grad=None, ref_type=None):
-    """Subpixel match against cached warped reference patches.  Returns
+    """Subpixel match against cached warped reference patches.  With
+    `cfg.edgelet_detection` and `warp_grad` given, EDGELET features
+    (`ref_type`) align 1D along their warped gradient direction.  Returns
     (px_cur level-0, success)."""
-    if cfg.edgelet_detection:
-        raise not_ported("edgelet_detection", cfg.edgelet_detection)
-    use_pallas = cfg.use_pallas
-    h, w = cam.height, cam.width
     n_levels = min(cur_stack.shape[0], cfg.max_search_level + 1)
     cur_stack = cur_stack[:n_levels]
     search_level = torch.clamp(search_level, 0, n_levels - 1)
     ref_patch, gx, gy = patch_gradients(ref_patch_b)
     scale_s = 2.0 ** search_level.to(px_cur_init.dtype)
     uv_init = px_cur_init / scale_s[:, None]
+    routed = cfg.edgelet_detection and warp_grad is not None
+    is_edge = (ref_type == FTYPE_EDGELET) & valid if routed else None
+    uv_out, success = _align_direct(cur_stack, cam, search_level, ref_patch,
+                                    gx, gy, uv_init, valid, warp_grad,
+                                    is_edge, cfg)
+    return uv_out * scale_s[:, None], success
 
+
+def _align_direct(cur_stack, cam, search_level, ref_patch, gx, gy, uv_init,
+                  valid, direction, is_edge, cfg: SVOConfig):
+    """The alignment step shared by match_cached and find_match_direct:
+    2D ICLK for every feature, then 1D along `direction` for the features
+    in `is_edge` (None: no edgelet routing).  The window ICLK folds the
+    ZMSSD/std gates in only when nothing routes (for corners too, as in the
+    JAX package); otherwise every match goes through `_zmssd_accept` after
+    the alignment.  Returns (uv at the search level, success)."""
+    use_pallas = cfg.use_pallas
+    h, w = cam.height, cam.width
+    gated_inline = cfg.align_mxu and is_edge is None
+    gate = gated_inline and cfg.direct_match_zmssd
     if cfg.align_mxu:
-        gate = cfg.direct_match_zmssd
         uv_out, conv, _ = pk.align_iclk_mxu(
             cur_stack, search_level, ref_patch, gx, gy, uv_init, valid,
             cfg.align_max_iter, h, w, use_pallas=use_pallas,
             zmssd_factor=cfg.zmssd_threshold_factor if gate else None,
             min_patch_std=cfg.match_min_patch_std if gate else None)
-        success = conv & valid
     else:
         uv_out, conv, _ = pk.align_iclk(
             cur_stack, search_level, ref_patch, gx, gy, uv_init, valid,
             cfg.align_max_iter, h, w, use_pallas=use_pallas)
-        success = conv & valid
-        if cfg.direct_match_zmssd:
-            success = _zmssd_accept(cur_stack, search_level, ref_patch,
-                                    uv_out, success, cfg, use_pallas)
-    return uv_out * scale_s[:, None], success
+    if is_edge is not None:
+        uv_e, conv_e, _ = align1d_stack(
+            cur_stack, search_level, ref_patch, gx, gy, direction, uv_init,
+            is_edge, cfg.align_max_iter, h, w, use_pallas=use_pallas)
+        uv_out = torch.where(is_edge[:, None], uv_e, uv_out)
+        conv = torch.where(is_edge, conv_e, conv)
+    success = conv & valid
+    if cfg.direct_match_zmssd and not gated_inline:
+        success = _zmssd_accept(cur_stack, search_level, ref_patch, uv_out,
+                                success, cfg, use_pallas)
+    return uv_out, success
 
 
-def find_match_direct(*args, **kwargs):
-    """Not ported: the tracking path serves direct matches from the warped
-    patch cache (`match_cached`)."""
-    raise not_ported("find_match_direct", "called")
+def find_match_direct(cur_stack, kf_stack, kf_idx, cam, px_ref, f_ref,
+                      depth_ref, level_ref, T_cur_ref: SE3, px_cur_init,
+                      valid, cfg: SVOConfig, ref_grad=None, ref_type=None):
+    """Subpixel match of map points into the current frame without the
+    warp cache: affine warp, best search level, the border patch warped out
+    of the keyframe arena, then the alignment of match_cached (EDGELET
+    features 1D along A @ ref_grad, normalised, when `cfg.edgelet_detection`
+    and `ref_grad` are given).  Off the tracking path.  Returns (px_cur
+    level-0, search_level, success)."""
+    halfpatch = cfg.patch_halfsize
+    h, w = cam.height, cam.width
+    A = get_warp_matrix_affine(cam, px_ref, f_ref, depth_ref, T_cur_ref,
+                               level_ref, halfpatch)
+    n_levels = min(cur_stack.shape[0], cfg.max_search_level + 1)
+    cur_stack = cur_stack[:n_levels]
+    search_level = get_best_search_level(A, n_levels - 1)
+    patch_b, ok_warp = warp_affine_stack(
+        kf_stack, kf_idx, A, px_ref, level_ref, search_level,
+        halfpatch + 1, h, w)
+    ref_patch, gx, gy = patch_gradients(patch_b)
+    scale_s = 2.0 ** search_level.to(px_ref.dtype)
+    uv_init = px_cur_init / scale_s[:, None]
+    valid = valid & ok_warp
+    dir_cur = is_edge = None
+    if cfg.edgelet_detection and ref_grad is not None:
+        is_edge = (ref_type == FTYPE_EDGELET) & valid
+        dir_cur = torch.einsum("nij,nj->ni", A, ref_grad)
+        dir_cur = dir_cur / torch.clamp(
+            torch.linalg.norm(dir_cur, dim=-1, keepdim=True), min=1e-8)
+    uv_out, success = _align_direct(cur_stack, cam, search_level, ref_patch,
+                                    gx, gy, uv_init, valid, dir_cur, is_edge,
+                                    cfg)
+    return uv_out * scale_s[:, None], search_level, success
 
 
 def find_epipolar_match(cur_stack, kf_stack, kf_idx, cam, px_ref, f_ref,
                         level_ref, T_cur_ref: SE3, d_estimate, d_min, d_max,
                         valid, cfg: SVOConfig, cached=None):
     """ZMSSD scan along each seed's epipolar segment [d_min, d_max], subpixel
-    refinement, and triangulated depth.  Returns (depth, px_cur, success)."""
-    if cfg.epi_search_1d:
-        raise not_ported("epi_search_1d", cfg.epi_search_1d)
+    refinement (2D ICLK, or 1D along the segment with `cfg.epi_search_1d`)
+    and triangulated depth.  Returns (depth, px_cur, success)."""
     halfpatch = cfg.patch_halfsize
     area = (2 * halfpatch) ** 2
     dtype = px_ref.dtype
@@ -252,9 +345,17 @@ def find_epipolar_match(cur_stack, kf_stack, kf_idx, cam, px_ref, f_ref,
 
     valid_all = valid & ok_warp & score_ok & ~too_long
     uv_start = px_start0 / scale_s[:, None]
-    uv_out, conv_out, _ = pk.align_iclk(
-        cur_stack, search_level, ref_patch, gx, gy, uv_start, valid_all,
-        cfg.subpix_n_iter, h, w, use_pallas=use_pallas)
+    if cfg.epi_search_1d:
+        epi_dir = px_A - px_B
+        epi_dir = epi_dir / torch.clamp(
+            torch.linalg.norm(epi_dir, dim=-1, keepdim=True), min=1e-8)
+        uv_out, conv_out, _ = align1d_stack(
+            cur_stack, search_level, ref_patch, gx, gy, epi_dir, uv_start,
+            valid_all, cfg.subpix_n_iter, h, w, use_pallas=use_pallas)
+    else:
+        uv_out, conv_out, _ = pk.align_iclk(
+            cur_stack, search_level, ref_patch, gx, gy, uv_start, valid_all,
+            cfg.subpix_n_iter, h, w, use_pallas=use_pallas)
     px_cur = uv_out * scale_s[:, None]
 
     f_cur = cam.cam2world(px_cur)

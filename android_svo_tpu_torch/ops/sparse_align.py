@@ -1,19 +1,23 @@
 """Sparse image alignment: coarse-to-fine inverse-compositional Gauss-Newton
-on 4x4 photometric patches — port of `android_svo_tpu/ops/sparse_align.py`
-(GN only; `method="lm"` raises).
+(or Levenberg-Marquardt) on 4x4 photometric patches — port of
+`android_svo_tpu/ops/sparse_align.py`.
 
-The JAX while-loop stops a level on the first non-improving step or a tiny
-update; one more iteration after such a stop would still overwrite the
-best-so-far registers, so the loop is not freeze-safe.  Here the loop breaks
-on the host on the same condition (one scalar read per iteration), which
-reproduces the JAX carry exactly.
+The JAX while-loop stops a level on the first non-improving step (GN) or a
+tiny update (both methods); one more iteration after such a stop would
+still overwrite the best-so-far registers, so the loop is not freeze-safe.
+Here the loop breaks on the host on the same condition (one scalar read per
+iteration), which reproduces the JAX carry exactly.  Under LM the iterate
+steps every iteration, also when chi2 got worse: only the best-so-far
+registers keep the best iterate, and the damping mu (0.01 at the start of
+each level) grows tenfold after a worse step and relaxes to max(mu/3, 1e-8)
+after a better one.
 """
 
 from __future__ import annotations
 
 import torch
 
-from android_svo_tpu_torch.config import SVOConfig, not_ported
+from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.geometry.linsolve import solve_spd
 from android_svo_tpu_torch.geometry.se3 import SE3, hat
 from android_svo_tpu_torch.ops import interp
@@ -53,10 +57,9 @@ def level_substack(stack: torch.Tensor, level: int, h: int, w: int):
 def sparse_img_align(ref_stack, cur_stack, cam, T_cur_ref_init: SE3,
                      ref_px, ref_f, ref_depth, valid, cfg: SVOConfig,
                      method: str = "gn"):
-    """Estimate T_cur_ref by direct alignment.  Returns (T_cur_ref,
-    n_tracked, chi2)."""
-    if method != "gn":
-        raise not_ported("img_align method", method)
+    """Estimate T_cur_ref by direct alignment; `method` is "gn" or "lm".
+    Returns (T_cur_ref, n_tracked, chi2)."""
+    lm = method == "lm"
     dtype = ref_px.dtype
     dev = ref_px.device
     half = cfg.img_align_patch_halfsize
@@ -97,6 +100,7 @@ def sparse_img_align(ref_stack, cur_stack, cam, T_cur_ref_init: SE3,
         T_q, T_t = T.q, T.t
         best_q, best_t = T.q, T.t
         best_chi2 = torch.tensor(float("inf"), dtype=dtype, device=dev)
+        mu = torch.tensor(0.01, dtype=dtype, device=dev) if lm else None
         for _ in range(cfg.img_align_n_iter):
             Tl = SE3(q=T_q, t=T_t)
             xyz_cur = Tl.apply(xyz_ref)
@@ -113,7 +117,8 @@ def sparse_img_align(ref_stack, cur_stack, cam, T_cur_ref_init: SE3,
             chi2 = torch.sum(r * r) / n_meas.to(dtype)
             Hm = torch.einsum("nai,naj->ij", Jm, Jm)
             g = torch.einsum("nai,na->i", Jm, r)
-            Hm = Hm + 1e-4 * eye6 * torch.trace(Hm) / 6.0
+            damp = 1e-4 + mu if lm else 1e-4
+            Hm = Hm + damp * eye6 * torch.trace(Hm) / 6.0
             dx = solve_spd(Hm, -g)
             improved = chi2 < best_chi2
             best_q = torch.where(improved, T_q, best_q)
@@ -121,11 +126,17 @@ def sparse_img_align(ref_stack, cur_stack, cam, T_cur_ref_init: SE3,
             best_chi2 = torch.where(improved, chi2, best_chi2)
             T_new = Tl.compose(SE3.exp(dx)).normalize()
             small = torch.linalg.norm(dx) < cfg.img_align_eps
-            # rollback: once chi2 stops improving, keep the best iterate and
-            # stop (one host read per iteration)
-            stop = bool((~improved | small).item())
-            T_q = torch.where(improved, T_new.q, T_q)
-            T_t = torch.where(improved, T_new.t, T_t)
+            if lm:
+                mu = torch.where(improved, torch.clamp(mu / 3.0, min=1e-8),
+                                 mu * 10.0)
+                stop = bool(small.item())
+                T_q, T_t = T_new.q, T_new.t
+            else:
+                # rollback: once chi2 stops improving, keep the best iterate
+                # and stop (one host read per iteration)
+                stop = bool((~improved | small).item())
+                T_q = torch.where(improved, T_new.q, T_q)
+                T_t = torch.where(improved, T_new.t, T_t)
             if stop:
                 break
         T = SE3(q=best_q, t=best_t)

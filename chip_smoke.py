@@ -10,7 +10,10 @@ every phase passed):
                into one library.
   3. gate    — each patch kernel against its plain PyTorch version on the
                card at the tracking path's shapes (768 features, 640x480
-               pyramid), with the bounds of the JAX package's kernel gate;
+               pyramid), with the bounds of the JAX package's kernel gate,
+               in every form the configurations give it (also the 1D
+               alignment's 8x8 sampler at mixed levels with a valid mask,
+               and the window ICLK with its gates off);
                times each kernel, its plain version and (where one exists) a
                library call with CUDA events, and computes its bound; counts
                the ATen ops and device activities one call of each kernel's
@@ -45,8 +48,22 @@ every phase passed):
   7. reloc   — the relocalization demo (tools/reloc_demo.py): tracking lost
                on blank frames, recovered, final stage DEFAULT, every patch
                kernel launched.
-Each path (3c, 4, 5, 6, 7) runs with the launch counts set to 0 just before
-it and read just after.
+  8. variants — 8a: phase 4's configuration and frames with
+               poseoptim_method = structureoptim_method = "lm": DEFAULT,
+               0 failures, a keyframe, ATE <= 0.02, every patch kernel
+               launched; then on the plain versions: no launch, camera
+               centres within 5e-3.  8b: edgelet detection with the 1D
+               alignment (EDGE_CFG) on the 20 frames of tests/
+               test_edgelet.py's sweep over the edge-rich texture, rendered
+               on the card at 640x480: DEFAULT, 0 failures, live edgelet
+               landmarks and seeds, ATE <= max(0.02, 2 x JAX_ATE_EDGE),
+               the sampler, window ICLK and scan launched and align_iclk
+               not (the 1D refinement replaces it); then the plain run as
+               in 8a.  Each prints its median frame, its keyframe-frame
+               median and its launches per tracked frame; 8b also the
+               calls and host time of align1d_stack per frame.
+Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs) runs with the
+launch counts set to 0 just before it and read just after.
 Prints a `{"kernels": [...]}` line (all five kernels) and ends with one JSON
 line `{"ok": true, "device": {...}}`.
 """
@@ -94,6 +111,20 @@ SCAN_START, SCAN_LEN = 40, 24
 SCAN_TOL = 0.02          # scan (no BA) vs the default path (BA at its
                          # keyframes): PERF.md section 2's ATE limit
 JAX_ATE_HOST = 0.00151   # BENCH_r05.json, 148-frame orbit with local BA
+# phase 8b: tests/test_edgelet.py's relaxed thresholds (set for 320x240) on
+# phase 4's base; the 640x480 camera has the same 420 px focal length, so
+# the sweep moves the image as far, and the grid has four times the cells
+EDGE_CFG = dict(edgelet_detection=True, epi_search_1d=True, max_n_kfs=8,
+                loba_n_iter=0, ransac_n_trials=128, img_align_n_iter=15,
+                init_min_disparity=15.0, init_min_kps=60,
+                init_min_tracked=30, init_min_inliers=25, quality_min_fts=25,
+                min_reproj_matches=20, min_pose_opt_edges=12,
+                kfselect_mindist=0.03)
+N_EDGE = 20              # tests/test_edgelet.py's sweep
+# the JAX FrameHandler's ATE on phase 8b's configuration, poses and texture
+# size at 640x480 on the CPU (its own texture: the noise band differs):
+# `JAX_PLATFORMS=cpu python tests/_torch_jax_edgelet_ate.py`
+JAX_ATE_EDGE = 0.003722   # bootstrap on frame 4, 0 failures, 5 keyframes
 RELOC_R05 = {"reloc_entered_at": 19, "recovered_at": 22, "ate": 0.00723}
 
 
@@ -148,6 +179,12 @@ def kernel_bounds(x, pk):
     touched = min(n * 5 * 5 * 4, sub_bytes)
     out["sample_patches_kernel"] = bound(
         touched + n * (4 + 8 + 1) + n * 16 * 4, n * 16 * 11)
+    # the 1D alignment's sampler: 8x8 patches (9x9 footprints) of the live
+    # features at their levels; every slot's patch is written
+    live = int(x["valid_mixed"].sum())
+    out["sample_patches_kernel/align1d"] = bound(
+        min(live * 9 * 9 * 4, planes) + n * (4 + 8 + 1) + n * 64 * 4,
+        live * 64 * 11)
     # epi_scan: a live step inside the level's margin samples and scores
     # the patch (~15 flops per pixel); the others are only placed and
     # tested (~10 flops); the reference is centred once.  Bytes: the
@@ -188,9 +225,10 @@ def kernel_bounds(x, pk):
             x["valid"], 10, h, w, window)
         evals = upd + n                        # + the final probe
         flops = evals * (64 * 19 + 15) + n * (64 * 8 + 60)
-        if window:
-            flops += n * 64 * 9
         ins, outs = n * (3 * 64 * 4 + 4 + 8 + 1), n * 13
+        if window:
+            out[name + "/ungated"] = bound(foot + ins + outs, flops)
+            flops += n * 64 * 9
         out[name] = bound(foot + ins + outs, flops)
     return out
 
@@ -272,6 +310,36 @@ def make_poses(synthetic, n, step, device):
             -3.0, (0.45 + 0.0008 * i, -0.0008 * i, 0.001 * i),
             device=device))
     return poses
+
+
+def edge_poses(synthetic, n, device):
+    """tests/test_edgelet.py's sweep: 0.04 per frame in x, 0.012 in y, the
+    camera pitched 0.45 rad and turning slowly."""
+    return [synthetic.lookdown_pose(
+        0.04 * i, 0.012 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i, 0.004 * i),
+        device=device) for i in range(n)]
+
+
+def run_with_plain(cfg, cam, imgs, poses, device, pk, what):
+    """`run_sequence` on the kernels and again on the plain versions, each
+    with the launch counts set to 0 just before it and read just after.
+    Checks that the plain run makes no launch, tracks the same frames and
+    puts the camera centres within 5e-3 of the kernel run."""
+    pk.reset_launch_counts()
+    run = run_sequence(cfg, cam, imgs, poses, device)
+    launches = dict(pk.LAUNCHES)
+    pk.reset_launch_counts()
+    run_p = run_sequence(cfg.replace(use_pallas=False), cam, imgs, poses,
+                         device)
+    require(all(v == 0 for v in pk.LAUNCHES.values()),
+            f"{what}: the plain run launched kernels: {pk.LAUNCHES}")
+    require(run_p["n_fail"] == 0, f"{what}: plain run failed "
+            f"{run_p['n_fail']} frames")
+    require(run_p["est"].shape == run["est"].shape,
+            f"{what}: plain and kernel runs tracked different frame counts")
+    dc = float(np.abs(run_p["est"] - run["est"]).max())
+    run_p.pop("handler")
+    return run, launches, run_p, dc
 
 
 STAGES = ("pyramid_creation", "sparse_img_align", "reproject",
@@ -469,10 +537,14 @@ def main() -> int:
              lambda: calls["sample_patches_kernel"](True)),
             ("8x8 with gradients, valid=None", 4,
              lambda: pk.sample_patches(x["stack"], x["lvl"], x["uv"], 4,
-                                       grad=True))],
+                                       grad=True)),
+            ("8x8 at mixed levels with a valid mask (align1d)", 4,
+             lambda: calls["sample_patches_kernel/align1d"](True))],
         "align_iclk_window_kernel": [
             ("8x8, both gates", 3,
-             lambda: calls["align_iclk_window_kernel"](True))],
+             lambda: calls["align_iclk_window_kernel"](True)),
+            ("8x8, gates off", 3,
+             lambda: calls["align_iclk_window_kernel/ungated"](True))],
         "align_iclk_kernel": [
             ("8x8, 10 iterations", 3,
              lambda: calls["align_iclk_kernel"](True))],
@@ -488,8 +560,19 @@ def main() -> int:
     }
     host_ops = {}
     for name, cases in dispatch.items():
+        counts = gp.LAUNCHES if name in gp.LAUNCHES else pk.LAUNCHES
         for what, limit, fn in cases:
-            n_ops, n_dev = dispatch_counts(fn)
+            for attempt in range(3):
+                before = counts[name]
+                n_ops, n_dev = dispatch_counts(fn)
+                if n_dev or counts[name] == before:
+                    break
+                # the wrapper launched its kernel (its count grew) but the
+                # profile holds no device activity: the profiler lost the
+                # record, which it does now and then; profile again
+                log(f"dispatch {name} ({what}): the kernel launched but the "
+                    f"profile recorded no device activity (attempt "
+                    f"{attempt + 1}); profiling again")
             log(f"dispatch {name} ({what}): {n_ops} ATen ops, {n_dev} "
                 f"device activities per call (limit {limit} and 1)")
             require(n_ops <= limit and n_dev == 1,
@@ -501,7 +584,7 @@ def main() -> int:
         k_ms = time_ms(lambda: fn(True))
         p_ms = time_ms(lambda: fn(False), iters=10, warmup=2)
         try:
-            d_ms = device_ms(lambda: fn(True), name)
+            d_ms = device_ms(lambda: fn(True), silicon_gate.kernel_of(name))
         except Exception as e:          # the profiler is optional here
             log(f"profiler unavailable for {name}: {e!r}")
             d_ms = None
@@ -754,6 +837,115 @@ def main() -> int:
     for name, cnt in launches_r.items():
         require(cnt > 0, f"{name} was not launched on the reloc path")
 
+    # ---- 8a. Levenberg-Marquardt on phase 4's configuration and frames -------
+    from android_svo_tpu_torch.ops import detect, matcher
+    cfg_lm = cfg.replace(poseoptim_method="lm", structureoptim_method="lm")
+    run_lm, launches_lm, run_lm_p, dc_lm = run_with_plain(
+        cfg_lm, cam, imgs, poses, dev, pk, "lm")
+    per_lm = {k: v / run_lm["n_tracked_frames"]
+              for k, v in launches_lm.items()}
+    log(f"lm path [{label}]: stage {run_lm['stage']}, tracked frames "
+        f"{run_lm['n_tracked_frames']}, failures {run_lm['n_fail']}, "
+        f"keyframes after bootstrap {run_lm['n_kf']}, ATE {run_lm['ate']:.6f} "
+        f"(plain {run_lm_p['ate']:.6f}), median {run_lm['median_ms']:.2f} "
+        f"ms/frame, keyframe frames {run_lm['median_kf_ms']:.2f} ms, plain "
+        f"median {run_lm_p['median_ms']:.2f} ms")
+    log(f"launches on the lm path: {json.dumps(launches_lm)}; per tracked "
+        f"frame {json.dumps(per_lm)}")
+    log(f"camera centres, lm kernel vs plain run: max |d| {dc_lm:.6f}")
+    require(run_lm["stage"] == 3, "lm path did not reach DEFAULT")
+    require(run_lm["n_fail"] == 0, f"lm path: {run_lm['n_fail']} failures")
+    require(run_lm["n_kf"] >= 1, "lm path: no keyframe after bootstrap")
+    require(math.isfinite(run_lm["ate"]) and run_lm["ate"] <= 0.02,
+            f"lm path ATE {run_lm['ate']} > 0.02")
+    for name, cnt in launches_lm.items():
+        require(cnt > 0, f"{name} was not launched on the lm path")
+    require(dc_lm <= 5e-3, f"lm path: camera centres differ from the plain "
+            f"run by {dc_lm} > 5e-3")
+
+    # ---- 8b. edgelets with the 1D alignment on the edge-rich scene ---------
+    cfg_e = SVOConfig(**EDGE_CFG)
+    tex_e = synthetic.make_edge_texture(torch.Generator().manual_seed(3),
+                                        2048, device=dev)
+    poses_e = edge_poses(synthetic, N_EDGE, dev)
+    imgs_e = [synthetic.render(tex_e, cam, p) for p in poses_e]
+    torch.cuda.synchronize()
+    align1d = matcher.align1d_stack
+    a1d = {"calls": 0, "host_s": 0.0}
+
+    def timed_align1d(*args, **kw):
+        """align1d_stack, with its calls and host time counted on the
+        kernel run (the plain run passes use_pallas=False)."""
+        t0 = time.perf_counter()
+        out = align1d(*args, **kw)
+        if kw.get("use_pallas", True):
+            a1d["host_s"] += time.perf_counter() - t0
+            a1d["calls"] += 1
+        return out
+
+    matcher.align1d_stack = timed_align1d
+    try:
+        run_e, launches_e, run_e_p, dc_e = run_with_plain(
+            cfg_e, cam, imgs_e, poses_e, dev, pk, "edgelets")
+    finally:
+        matcher.align1d_stack = align1d
+    n_tr = run_e["n_tracked_frames"]
+    per_e = {k: v / n_tr for k, v in launches_e.items()}
+    vo_e = run_e["handler"].vo
+    n_edge_pts = int((vo_e.points.valid
+                      & (vo_e.points.ref_type == detect.FTYPE_EDGELET)).sum())
+    n_edge_seeds = int((vo_e.seeds.valid
+                        & (vo_e.seeds.ftype == detect.FTYPE_EDGELET)).sum())
+    ate_limit = max(0.02, 2 * JAX_ATE_EDGE)
+    log(f"edgelet path [{label}]: {N_EDGE} frames, stage {run_e['stage']}, "
+        f"tracked frames {n_tr}, failures {run_e['n_fail']}, keyframes "
+        f"after bootstrap {run_e['n_kf']}, live edgelet landmarks "
+        f"{n_edge_pts}, edgelet seeds {n_edge_seeds}, ATE {run_e['ate']:.6f} "
+        f"(limit {ate_limit}, JAX on the CPU {JAX_ATE_EDGE}; plain "
+        f"{run_e_p['ate']:.6f}), median {run_e['median_ms']:.2f} ms/frame, "
+        f"keyframe frames {run_e['median_kf_ms']:.2f} ms, plain median "
+        f"{run_e_p['median_ms']:.2f} ms")
+    log(f"launches on the edgelet path: {json.dumps(launches_e)}; per "
+        f"tracked frame {json.dumps(per_e)}")
+    a1d_calls = a1d["calls"] / n_tr
+    a1d_host_ms = a1d["host_s"] * 1e3 / n_tr
+    log(f"align1d_stack on the edgelet path (kernel run): {a1d['calls']} "
+        f"calls, {a1d_calls:.2f} per tracked frame, host time in it "
+        f"{a1d_host_ms:.2f} ms per tracked frame (unsynchronised) of a "
+        f"{run_e['median_ms']:.2f} ms median frame [{label}]")
+    log("align_iclk_kernel is not on the edgelet path: the 1D refinement "
+        "along the epipolar segment (epi_search_1d) replaces it")
+    log(f"camera centres, edgelet kernel vs plain run: max |d| {dc_e:.6f}")
+    require(run_e["stage"] == 3, "edgelet path did not reach DEFAULT")
+    require(run_e["n_fail"] == 0, f"edgelet path: {run_e['n_fail']} "
+            "failures")
+    require(n_tr >= 10, f"edgelet path: only {n_tr} tracked frames")
+    require(n_edge_pts > 0, "no edgelet landmarks in the live map")
+    require(n_edge_seeds > 0, "no edgelet seeds in the depth filter")
+    require(math.isfinite(run_e["ate"]) and run_e["ate"] <= ate_limit,
+            f"edgelet path ATE {run_e['ate']} > {ate_limit}")
+    for name in ("sample_patches_kernel", "align_iclk_window_kernel",
+                 "epi_scan_kernel"):
+        require(launches_e[name] > 0,
+                f"{name} was not launched on the edgelet path")
+    require(launches_e["align_iclk_kernel"] == 0,
+            "align_iclk_kernel launched on the edgelet path")
+    require(dc_e <= 5e-3, f"edgelet path: camera centres differ from the "
+            f"plain run by {dc_e} > 5e-3")
+    # the align1d host time of the kernel run alone, per call at the seed
+    # update's shapes (768 seeds, 8x8, 10 iterations)
+    ang = torch.linspace(0, 2 * math.pi, x["lvl"].shape[0], device=dev)
+    a1d_args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
+                torch.stack([torch.cos(ang), torch.sin(ang)], -1), x["init"],
+                x["valid"], 10, x["h"], x["w"])
+    a1d_ms = time_ms(lambda: matcher.align1d_stack(*a1d_args), iters=20)
+    a1d_plain_ms = time_ms(
+        lambda: matcher.align1d_stack(*a1d_args, use_pallas=False),
+        iters=5, warmup=1)
+    log(f"align1d_stack, 768 features, 10 iterations: {a1d_ms:.4f} ms per "
+        f"call on the kernels (10 sampler launches), {a1d_plain_ms:.4f} ms "
+        f"plain [{label}]")
+
     kernels = []
     for name in ("sample_patches_kernel", "align_iclk_window_kernel",
                  "epi_scan_kernel", "align_iclk_kernel"):
@@ -764,7 +956,11 @@ def main() -> int:
             "replaces": KERNEL_META[name], "launches": launches[name],
             "launches_by_path": {"main": launches[name],
                                  "default": launches_d[name],
-                                 "reloc": launches_r[name]},
+                                 "reloc": launches_r[name],
+                                 "lm": launches_lm[name],
+                                 "edgelets": launches_e[name]},
+            "launches_per_frame": {"lm": per_lm[name],
+                                   "edgelets": per_e[name]},
             "max_abs_err": gate.max_abs_err.get(name, 0.0), "ms": k_ms,
             "kernel_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": b_bytes, "bound_flops": b_flops,
@@ -773,6 +969,16 @@ def main() -> int:
             "card": label})
         kernels[-1].update(host_ops_per_call=host_ops[name],
                            redesigned_in=REDESIGNED_IN[name])
+        forms = {}
+        for form in timing:
+            if form.startswith(name + "/"):
+                f_ms, f_p_ms, f_d_ms = timing[form]
+                forms[form.split("/")[1]] = {
+                    "ms": f_ms, "kernel_ms": f_d_ms, "plain_ms": f_p_ms,
+                    "bound_ms": bounds[form][0], "bound_by": bounds[form][1],
+                    "max_abs_err": gate.max_abs_err.get(form, 0.0)}
+        if forms:
+            kernels[-1]["forms"] = forms
     pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",
@@ -817,6 +1023,28 @@ def main() -> int:
         "local_ba_device_ms": ba_prof["device_busy_ms"],
         "scan_ms_per_frame": t_scan, "steps_ms_per_frame": t_steps,
         "scan_twc_dev": d_scan}}), flush=True)
+    print(json.dumps({"variants": {
+        "card": label,
+        "lm": {"ate": run_lm["ate"], "ate_plain": run_lm_p["ate"],
+               "median_ms": run_lm["median_ms"],
+               "median_kf_ms": run_lm["median_kf_ms"],
+               "median_ms_plain": run_lm_p["median_ms"],
+               "keyframes": run_lm["n_kf"], "centre_dev": dc_lm,
+               "launches_per_frame": per_lm},
+        "edgelets": {"frames": N_EDGE, "tracked": n_tr, "ate": run_e["ate"],
+                     "ate_plain": run_e_p["ate"], "jax_ate_cpu": JAX_ATE_EDGE,
+                     "median_ms": run_e["median_ms"],
+                     "median_kf_ms": run_e["median_kf_ms"],
+                     "median_ms_plain": run_e_p["median_ms"],
+                     "keyframes": run_e["n_kf"],
+                     "edgelet_landmarks": n_edge_pts,
+                     "edgelet_seeds": n_edge_seeds, "centre_dev": dc_e,
+                     "launches_per_frame": per_e,
+                     "align1d_calls_per_frame": a1d_calls,
+                     "align1d_host_ms_per_frame": a1d_host_ms,
+                     "align1d_ms_per_call": a1d_ms,
+                     "align1d_plain_ms_per_call": a1d_plain_ms}}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

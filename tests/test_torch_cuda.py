@@ -38,17 +38,48 @@ def test_kernel_gate(problem):
 
 @pytest.mark.parametrize("name", ["sample_patches_kernel", "epi_scan_kernel",
                                   "align_iclk_kernel",
-                                  "align_iclk_window_kernel"])
+                                  "align_iclk_window_kernel",
+                                  "sample_patches_kernel/align1d",
+                                  "align_iclk_window_kernel/ungated"])
 def test_wrapper_launches_and_counts(problem, name):
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
     call = silicon_gate.kernel_calls(problem)[name]
+    kernel = silicon_gate.kernel_of(name)
     pk.reset_launch_counts()
     call(False)                                  # plain version: no launch
-    assert pk.LAUNCHES[name] == 0
+    assert pk.LAUNCHES[kernel] == 0
     call(True)
     torch.cuda.synchronize()
-    assert pk.LAUNCHES[name] == 1
+    assert pk.LAUNCHES[kernel] == 1
+
+
+def test_align1d_sampler_form_matches_plain(problem):
+    """The 1D alignment's sampler form (8x8 at mixed levels on the 3-level
+    stack, a valid mask) within the gate's 0.02 on live slots, and the
+    whole align1d_stack loop (ten such launches) against its plain run."""
+    from android_svo_tpu_torch.ops import matcher, silicon_gate
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    call = silicon_gate.kernel_calls(x)["sample_patches_kernel/align1d"]
+    k, p = call(True), call(False)
+    live = x["valid_mixed"]
+    assert not bool(live.all()) and bool(live.any())
+    assert float((k[live] - p[live]).abs().max()) <= 0.02
+    ang = torch.linspace(0, 6.28, x["lvl"].shape[0], device=k.device)
+    direction = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    args = (x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"], direction,
+            x["init"], x["valid"], 10, x["h"], x["w"])
+    pk.reset_launch_counts()
+    uk, ck, _ = matcher.align1d_stack(*args)
+    assert pk.LAUNCHES["sample_patches_kernel"] == 10
+    up, cp, _ = matcher.align1d_stack(*args, use_pallas=False)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["sample_patches_kernel"] == 10
+    assert float((ck == cp).float().mean()) >= 0.95
+    both = ck & cp
+    assert int(both.sum()) > 0
+    assert float((uk[both] - up[both]).abs().max()) <= 0.05
 
 
 def _same(a, b):
@@ -253,7 +284,8 @@ def test_wrappers_refuse_other_types(problem):
 
 
 @pytest.mark.parametrize("case", ["sample_4x4", "sample_8x8_grad",
-                                  "window_gated", "align", "scan",
+                                  "sample_8x8_align1d", "window_gated",
+                                  "window_ungated", "align", "scan",
                                   "scan_no_steps"])
 def test_wrapper_dispatch_counts(problem, case):
     """Under torch.profiler one call of the sampler dispatches at most 4
@@ -268,7 +300,11 @@ def test_wrapper_dispatch_counts(problem, case):
         "sample_4x4": (lambda: calls["sample_patches_kernel"](True), 4),
         "sample_8x8_grad": (lambda: pk.sample_patches(
             x["stack"], x["lvl"], x["uv"], 4, grad=True), 4),
+        "sample_8x8_align1d": (
+            lambda: calls["sample_patches_kernel/align1d"](True), 4),
         "window_gated": (lambda: calls["align_iclk_window_kernel"](True), 3),
+        "window_ungated": (
+            lambda: calls["align_iclk_window_kernel/ungated"](True), 3),
         "align": (lambda: calls["align_iclk_kernel"](True), 3),
         "scan": (lambda: calls["epi_scan_kernel"](True), 3),
         "scan_no_steps": (lambda: pk.epi_scan(

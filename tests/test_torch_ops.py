@@ -248,11 +248,6 @@ class TestSparseAlign:
             n[eps] = len(calls)
         assert n[1e-3] < n[1e-7], n
 
-    def test_lm_raises(self, frames, pcam):
-        with pytest.raises(NotImplementedError):
-            sparse_align.sparse_img_align(None, None, pcam, None, None, None,
-                                          None, None, SVOConfig(), "lm")
-
 
 class TestMatcher:
     @pytest.fixture(scope="class")
@@ -369,13 +364,3 @@ class TestMatcher:
         # and the found depths are right (true depth within 2%)
         rel = np.abs(dp.numpy()[both] / x["d"][both] - 1.0)
         assert np.median(rel) < 0.02
-
-    @pytest.mark.parametrize("field,value,fn", [
-        ("epi_search_1d", True, "find_epipolar_match"),
-        ("edgelet_detection", True, "match_cached")])
-    def test_unported_branches_raise(self, field, value, fn):
-        cfg = SVOConfig(**{field: value})
-        args = [None] * 12 + [cfg] if fn == "find_epipolar_match" else \
-            [None] * 6 + [cfg]
-        with pytest.raises(NotImplementedError, match=field):
-            getattr(matcher, fn)(*args)

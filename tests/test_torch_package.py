@@ -1,8 +1,7 @@
 """Package-level checks of the PyTorch port: it imports no JAX, its config
 mirrors the JAX one, its entry points refuse to fall back to the CPU, the
-default configuration runs, the branches it has not ported raise, the state
-converts losslessly, and the trace monitor writes the JAX monitor's
-records."""
+default configuration runs, the state converts losslessly, and the trace
+monitor writes the JAX monitor's records."""
 
 import ast
 import ctypes
@@ -128,41 +127,6 @@ def test_default_config_builds_and_tracks():
     assert pipeline.RES_IS_KEYFRAME in results
     assert handler.n_local_ba >= 1
     assert handler.stage == fh.STAGE_DEFAULT_FRAME
-
-
-@pytest.mark.parametrize("field,value", [
-    ("poseoptim_method", "lm"),
-    ("structureoptim_method", "lm"), ("edgelet_detection", True),
-    ("epi_search_1d", True), ("img_align_method", "lm"),
-    ("find_match_direct", None)])
-def test_unported_branches_raise(field, value):
-    from android_svo_tpu_torch.core import point_opt, pose_opt
-    from android_svo_tpu_torch.ops import detect, matcher, sparse_align
-    z = torch.zeros
-    with pytest.raises(NotImplementedError, match=field.split("_method")[0]
-                       if field == "img_align_method" else field):
-        if field == "poseoptim_method":
-            from android_svo_tpu_torch.geometry.se3 import SE3
-            pose_opt.optimize_pose(SE3.identity(), z(4, 3), z(4, 3),
-                                   z(4, dtype=torch.int32),
-                                   z(4, dtype=torch.bool), 420.0,
-                                   SVOConfig(poseoptim_method=value))
-        elif field == "structureoptim_method":
-            point_opt.optimize_points(z(2, 3), z(2, 1, 4), z(2, 1, 3),
-                                      z(2, 1, 3), z(2, 1, dtype=torch.bool),
-                                      z(2, dtype=torch.bool), 2,
-                                      method=value)
-        elif field == "edgelet_detection":
-            detect.detect_features((z(48, 64),) * 3, None,
-                                   SVOConfig(edgelet_detection=value))
-        elif field == "epi_search_1d":
-            matcher.find_epipolar_match(*([None] * 12),
-                                        SVOConfig(epi_search_1d=value))
-        elif field == "img_align_method":
-            sparse_align.sparse_img_align(None, None, None, None, None, None,
-                                          None, None, SVOConfig(), value)
-        else:
-            matcher.find_match_direct()
 
 
 def test_state_numpy_roundtrip_exact():
