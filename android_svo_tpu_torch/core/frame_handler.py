@@ -229,8 +229,16 @@ class FrameHandler:
             return contextlib.nullcontext()
         return self.perf_mon.timer(name)
 
+    def _frame(self, img) -> torch.Tensor:
+        """The frame as float32 on the handler's device: a tensor already
+        there is used as it is; a pinned host tensor is copied without
+        blocking (the caller keeps it unchanged until the stream has read
+        it, as the native feeder's ring does)."""
+        img = torch.as_tensor(img, dtype=torch.float32)
+        return img.to(self.device, non_blocking=img.is_pinned())
+
     def _add_image(self, img) -> TrackResult:
-        img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        img = self._frame(img)
         if self.stage == STAGE_FIRST_FRAME:
             return self._process_first(img)
         if self.stage == STAGE_SECOND_FRAME:
@@ -369,8 +377,7 @@ class FrameHandler:
                                result=pipeline.RES_FAILURE)
         self._seat_on_keyframe(int(match[0]))
         self.stage = STAGE_DEFAULT_FRAME
-        return self._process_default(
-            torch.as_tensor(img, dtype=torch.float32).to(self.device))
+        return self._process_default(self._frame(img))
 
     def _prepare_relocalization(self):
         """Seat the last frame on the keyframe closest to the lost pose."""

@@ -62,8 +62,27 @@ every phase passed):
                in 8a.  Each prints its median frame, its keyframe-frame
                median and its launches per tracked frame; 8b also the
                calls and host time of align1d_stack per frame.
-Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs) runs with the
-launch counts set to 0 just before it and read just after.
+  9. dataset — the dataset path at EuRoC MH_01 cam0's geometry (752x480,
+               radtan distortion): (a) the patch kernels' gate at 752x480
+               (level 0 padded to 768 columns, level 4 47 wide); (b) the
+               148-frame orbit rendered on the card through that camera,
+               quantised to uint8 and written as an ASL tree (stdlib PNGs,
+               data.csv at 20 Hz, sensor.yaml, ground truth); (c) load_euroc
+               on the card (camera fields as written, on the card),
+               yuv420_to_rgb within 1e-3 of a float64 reference, the H2D
+               copy of one frame from pinned memory timed; (d)
+               FrameHandler at the default configuration over the frames
+               the native feeder decodes into pinned memory and copies to
+               the card: DEFAULT, 0 failures, local BA run, every patch
+               kernel launched, ATE <= 0.02; every frame, kept to the end,
+               equal to its uint8 image and its 640x480 Y plane through
+               yuv420_to_gray bit-exact; a profile of six steady-state
+               frames; (e) checkpoint after frame 100, resume,
+               the tail's T_cw.t within 1e-6; (f) the overlay on every 10th
+               tracked frame: one PPM per call, the cube's faces drawn
+               whenever its corners are in front of the camera.
+Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9) runs with
+the launch counts set to 0 just before it and read just after.
 Prints a `{"kernels": [...]}` line (all five kernels) and ends with one JSON
 line `{"ok": true, "device": {...}}`.
 """
@@ -75,6 +94,7 @@ import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -126,6 +146,9 @@ N_EDGE = 20              # tests/test_edgelet.py's sweep
 # `JAX_PLATFORMS=cpu python tests/_torch_jax_edgelet_ate.py`
 JAX_ATE_EDGE = 0.003722   # bootstrap on frame 4, 0 failures, 5 keyframes
 RELOC_R05 = {"reloc_entered_at": 19, "recovered_at": 22, "ate": 0.00723}
+DATASET_STAMP0 = 1403636579763555584   # MH_01's first cam0 stamp, 20 Hz
+CKPT_AT = 100            # phase 9 checkpoints after this frame
+OVERLAY_EVERY = 10       # phase 9 draws every 10th tracked frame
 
 
 class CheckFailed(RuntimeError):
@@ -264,6 +287,32 @@ def library_sample_ms(x):
     return grid_sample_ms(sub, px, py)
 
 
+def library_align1d_ms(x):
+    """grid_sample on the 1D alignment's sampler inputs: 8x8 patches at
+    each feature's level of the 3-level stack, as one 3-D (trilinear)
+    grid_sample whose depth coordinate lands exactly on the level's plane.
+    Returns (ms per call, device ms of its kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from android_svo_tpu_torch.ops import interp
+    from android_svo_tpu_torch.utils.profiling import device_ms
+    stack = x["stack"]
+    L, hp, wp = stack.shape
+    offs = interp.patch_offsets(4, device=stack.device)
+    px = x["uv"][:, None, 0] + offs[None, :, 0]
+    py = x["uv"][:, None, 1] + offs[None, :, 1]
+    pz = x["lvl"].float()[:, None].expand_as(px)
+    grid = torch.stack([2 * px / (wp - 1) - 1, 2 * py / (hp - 1) - 1,
+                        2 * pz / (L - 1) - 1], -1).reshape(1, -1, 8, 8, 3)
+    vol = stack[None, None].contiguous()
+
+    def call():
+        return F.grid_sample(vol, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return time_ms(call), device_ms(call, "grid_sampler")
+
+
 def probe_bound(img, uv, variant):
     """Least time for one probe call: the distinct pixels its windows touch
     (clamped to the image) read once, uv read once, the patches written
@@ -366,26 +415,24 @@ def device_summary(events, per=1, n_top=10):
                                for k, v in top]}
 
 
-def profile_frames(cfg, cam, imgs, device, start, n):
-    """torch.profiler over n steady-state tracking frames (after `start`
-    frames of warm-up): `device_summary` per frame and, per stage (the
+def profile_frames(handler, imgs, timestamps=None):
+    """torch.profiler over the steady-state tracking frames `imgs` fed to
+    a warmed-up `handler`: `device_summary` per frame and, per stage (the
     track_frame ranges), host wall time, the device time of the work
-    launched inside it, and its span on the device timeline."""
+    launched inside it, and its span on the device timeline.  Returns the
+    summary and each frame's TrackResult."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from android_svo_tpu_torch.core import frame_handler as fh
     from android_svo_tpu_torch.utils.profiling import device_time_us
 
-    handler = fh.FrameHandler(cam, cfg, device=device)
-    for img in imgs[:start]:
-        handler.add_image(img)
+    n = len(imgs)
+    stamps = timestamps if timestamps is not None else [0.0] * n
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for img in imgs[start:start + n]:
-            handler.add_image(img)
+        results = [handler.add_image(img, ts) for img, ts in zip(imgs, stamps)]
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     stages = {k: {"host_ms": 0.0, "device_ms": 0.0, "device_span_ms": 0.0}
@@ -400,8 +447,8 @@ def profile_frames(cfg, cam, imgs, device, start, n):
             else:
                 st["host_ms"] += dur / 1e3 / n
                 st["device_ms"] += device_time_us(e) / 1e3 / n
-    return {"frames": n, "wall_ms_profiled": wall_ms,
-            **device_summary(events, n), "stages": stages}
+    return ({"frames": n, "wall_ms_profiled": wall_ms,
+             **device_summary(events, n), "stages": stages}, results)
 
 
 def profile_call(fn, reps=3):
@@ -470,6 +517,238 @@ def run_sequence(cfg, cam, imgs, poses, device):
             "n_kf_total": int(handler.vo.kfs.valid.sum())}
 
 
+def yuv_rgb_reference(y, u, v):
+    """float64 numpy of data/yuv.py's conversion (the reference's
+    fixed-point BT.601 constants over 1024)."""
+    yf = y.astype(np.float64)
+    uf = np.repeat(np.repeat(u.astype(np.float64), 2, 0), 2, 1) - 128.0
+    vf = np.repeat(np.repeat(v.astype(np.float64), 2, 0), 2, 1) - 128.0
+    yy = np.maximum(yf - 16.0, 0.0) * (1192.0 / 1024.0)
+    rgb = np.stack([yy + (1634.0 / 1024.0) * vf,
+                    yy - (833.0 / 1024.0) * vf - (400.0 / 1024.0) * uf,
+                    yy + (2066.0 / 1024.0) * uf], axis=-1)
+    return np.clip(rgb, 0.0, 255.0)
+
+
+def dataset_phase(dev, label, workdir):
+    """Phase 9: the dataset path at EuRoC MH_01 cam0's geometry (752x480,
+    radtan).  Returns its numbers; raises CheckFailed on any check."""
+    import torch
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.data import euroc, native_feeder, synthetic
+    from android_svo_tpu_torch.data import yuv
+    from android_svo_tpu_torch.evals.trajectory import ate_rmse
+    from android_svo_tpu_torch.geometry.camera import PinholeCamera
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.utils.checkpoint import (load_handler,
+                                                        save_handler)
+    from android_svo_tpu_torch.viz import Visualizer, overlay
+
+    t_phase = time.perf_counter()
+    w, h = euroc.MH01_CAM0["resolution"]
+    # ---- a. the patch kernels at the padded 752x480 stack ----------------
+    x = silicon_gate.gate_inputs(n=768, h=h, w=w, seed=0, device=dev)
+    gate = silicon_gate.run_gate(x)
+    torch.cuda.synchronize()
+    log(f"dataset gate at {w}x{h} (stack {tuple(x['stack'].shape)}): "
+        + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in gate.detail.items()}))
+    require(gate.ok, f"kernel gate at {w}x{h} failed: {gate.failures}")
+
+    # ---- b. render the orbit through MH_01 cam0 and write the ASL tree ---
+    fx, fy, cx, cy = euroc.MH01_CAM0["intrinsics"]
+    dist = euroc.MH01_CAM0["distortion_coefficients"]
+    cam = PinholeCamera.create(w, h, fx, fy, cx, cy, *dist, device=dev)
+    tex = synthetic.make_texture(torch.Generator().manual_seed(0), 2048,
+                                 device=dev)
+    poses = make_poses(synthetic, N_ORBIT, 0.02, dev)
+    q8 = torch.stack([torch.round(torch.clamp(synthetic.render(tex, cam, p),
+                                              0, 255)).to(torch.uint8)
+                      for p in poses])
+    stamps = [DATASET_STAMP0 + i * 50_000_000 for i in range(N_ORBIT)]
+    root = os.path.join(workdir, "MH01_synthetic")
+    t0 = time.perf_counter()
+    paths = euroc.write_euroc(
+        root, q8.cpu().numpy(), stamps, euroc.MH01_CAM0,
+        np.stack([p.t.cpu().numpy() for p in poses]),
+        np.stack([p.q.cpu().numpy() for p in poses]))
+    write_s = time.perf_counter() - t0
+
+    # ---- c. load; YUV; the H2D copy of one frame --------------------------
+    seq = euroc.load_euroc(root, device=dev)
+    for name in ("fx", "fy", "cx", "cy", "dist"):
+        got = getattr(seq.camera, name)
+        require(got.device.type == dev.type, f"loaded camera's {name} is on "
+                f"{got.device}, not {dev}")
+        want = getattr(cam, name)
+        require(torch.equal(got, want),
+                f"loaded camera's {name} {got} != written {want}")
+    require((seq.camera.width, seq.camera.height) == (w, h)
+            and not seq.camera.distortion_free,
+            "loaded camera's size or distortion differs from the written")
+    require(seq.paths() == paths and len(seq) == N_ORBIT,
+            "the loader lists other frames than were written")
+    gen = torch.Generator().manual_seed(9)
+    y_pl = q8[0][:, :640].contiguous()
+    u_pl = torch.randint(0, 256, (240, 320), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    v_pl = torch.randint(0, 256, (240, 320), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    rgb = yuv.yuv420_to_rgb(y_pl, u_pl, v_pl)
+    yuv_err = float(np.abs(rgb.double().cpu().numpy() - yuv_rgb_reference(
+        y_pl.cpu().numpy(), u_pl.cpu().numpy(), v_pl.cpu().numpy())).max())
+    yuv_ms = time_ms(lambda: yuv.yuv420_to_rgb(y_pl, u_pl, v_pl))
+    # the feeder's per-frame copy: one frame from pinned memory to the card
+    pinned = q8[0].float().cpu().pin_memory()
+    on_card = torch.empty(pinned.shape, device=dev)
+    copy_ms = time_ms(lambda: on_card.copy_(pinned, non_blocking=True))
+    log(f"dataset load [{label}]: {N_ORBIT} frames at {w}x{h} written in "
+        f"{write_s:.2f} s; H2D copy of one frame from pinned memory "
+        f"{copy_ms:.4f} ms; yuv420_to_rgb 640x480 max |d| vs float64 "
+        f"{yuv_err:.2e}, {yuv_ms:.4f} ms")
+    require(yuv_err <= 1e-3, f"yuv420_to_rgb max |d| {yuv_err} > 1e-3")
+
+    # ---- d. track the feeder's frames; e. checkpoint at CKPT_AT ----------
+    cfg = SVOConfig(init_min_disparity=20.0, max_n_kfs=8)
+    handler = fh.FrameHandler(seq.camera, cfg, device=dev)
+    feeder = native_feeder.NativeFrameFeeder(seq.paths(), device=dev)
+    ckpt = os.path.join(workdir, "ckpt")
+    ppm_dir = os.path.join(workdir, "overlay")
+    viz = corners = None
+    frames, est, gt, track_ms, kf_ms, tail_a = [], [], [], [], [], []
+    n_fail = n_tracked = 0
+    cube_in_front = []          # (frame written, all cube corners ahead)
+    order = []
+    pk.reset_launch_counts()
+    for i, frame in feeder:
+        order.append(i)
+        frames.append(frame)
+        was_default = handler.stage == fh.STAGE_DEFAULT_FRAME
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = handler.add_image(frame, seq.timestamps[i])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if handler.stage == fh.STAGE_DEFAULT_FRAME:
+            t_wc = res.t_wc if res.t_wc is not None else res.T_cw.inverse().t
+            est.append(t_wc.cpu().numpy().astype(np.float64))
+            gt.append(seq.gt_at(seq.timestamps[i]))
+            if viz is None:
+                # the cube on the first camera's optical axis at the map's
+                # scene depth, a fifth of that depth wide
+                depth = cfg.map_scale
+                viz = Visualizer(ppm_dir, seq.camera,
+                                 cube_center=(0.0, 0.0, depth),
+                                 cube_size=0.2 * depth)
+                corners = torch.tensor(overlay._CORNERS * viz.cube_size
+                                       + np.array(viz.cube_center),
+                                       dtype=torch.float32, device=dev)
+        if was_default:
+            track_ms.append(dt)
+            n_fail += res.result == pipeline.RES_FAILURE
+            if res.result == pipeline.RES_IS_KEYFRAME:
+                kf_ms.append(dt)
+            if n_tracked % OVERLAY_EVERY == 0:
+                out = viz(frame, res.T_cw, handler.vo.last.ftr_px,
+                          handler.vo.last.ftr_valid)
+                ahead = bool((res.T_cw.apply(corners)[:, 2] > 1e-3).all())
+                faces = {tuple(c) for c in overlay.FACE_COLORS}
+                drawn = bool(faces & {tuple(c) for c in out.reshape(-1, 3)})
+                cube_in_front.append((i, ahead, drawn))
+            n_tracked += 1
+        if i == CKPT_AT:
+            save_handler(ckpt, handler)
+        elif i > CKPT_AT:
+            tail_a.append(res.T_cw.t.cpu().numpy())
+    launches = dict(pk.LAUNCHES)
+    wait_ms = feeder.wait_s * 1e3 / N_ORBIT
+    feeder.close()
+    ate = ate_rmse(np.array(est), np.array(gt)) if len(est) >= 3 else \
+        float("inf")
+    per_frame = {k: v / max(n_tracked, 1) for k, v in launches.items()}
+    n_kf, n_ba = int(handler.vo.kfs.valid.sum()), handler.n_local_ba
+    log(f"dataset path [{label}]: {N_ORBIT} frames from the feeder, stage "
+        f"{handler.stage}, tracked frames {n_tracked}, failures {n_fail}, "
+        f"keyframes after bootstrap {len(kf_ms)}, local BA runs "
+        f"{n_ba}, ATE {ate:.6f}, median "
+        f"{statistics.median(track_ms):.2f} ms/frame, keyframe frames "
+        f"{statistics.median(kf_ms) if kf_ms else float('nan'):.2f} ms; "
+        f"feeder wait {wait_ms:.4f} ms/frame")
+    log(f"launches on the dataset path: {json.dumps(launches)}; per tracked "
+        f"frame {json.dumps(per_frame)}")
+    require(handler.stage == fh.STAGE_DEFAULT_FRAME,
+            "dataset path did not reach DEFAULT")
+    require(n_fail == 0, f"dataset path: {n_fail} tracking failures")
+    require(n_ba >= 1, "dataset path never ran local BA")
+    for name, cnt in launches.items():
+        require(cnt > 0, f"{name} was not launched on the dataset path")
+    require(math.isfinite(ate) and ate <= 0.02,
+            f"dataset path ATE {ate} > 0.02")
+    # every decoded frame, kept to the end: exact (decode, and no pinned
+    # slot rewritten under a pending copy), and its 640x480 Y plane as the
+    # app's camera gives it, converted on the card
+    require(order == list(range(N_ORBIT)),
+            f"the feeder yielded frames {order}, not 0-{N_ORBIT - 1}")
+    for i, frame in enumerate(frames):
+        require(frame.device.type == dev.type
+                and torch.equal(frame, q8[i].float()),
+                f"decoded frame {i} differs from its uint8 image")
+        require(torch.equal(yuv.yuv420_to_gray(q8[i][:, :640].contiguous()),
+                            frame[:, :640]),
+                f"yuv420_to_gray of frame {i}'s Y plane differs from the "
+                "feeder's frame")
+    log(f"dataset decode [{label}]: all {N_ORBIT} frames exact after the "
+        "run; yuv420_to_gray bit-exact")
+
+    # ---- e. resume from the checkpoint and run the tail again; its first
+    # six frames profiled (where a steady-state frame's time goes here)
+    load_handler(ckpt, handler)
+    tail = range(CKPT_AT + 1, N_ORBIT)
+    prof, results = profile_frames(handler, [frames[i] for i in tail[:6]],
+                                   [seq.timestamps[i] for i in tail[:6]])
+    results += [handler.add_image(frames[i], seq.timestamps[i])
+                for i in tail[6:]]
+    tail_b = [res.T_cw.t.cpu().numpy() for res in results]
+    tail_d = float(np.abs(np.array(tail_a) - np.array(tail_b)).max())
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / statistics.median(
+        track_ms)
+    prof["results"] = [res.result for res in results[:6]]
+    log(f"dataset profile [{label}]: frames {tail[0]}-{tail[5]} (results "
+        f"{prof['results']}), {prof['device_activities']:.1f} device "
+        f"activities and {prof['device_busy_ms']:.2f} ms busy per frame, "
+        f"idle share {prof['idle_share']:.3f}")
+    log(f"resume from frame {CKPT_AT}: tail of {len(tail_b)} frames, T_cw.t "
+        f"max |d| {tail_d:.3e} (limit 1e-6)")
+    require(tail_d <= 1e-6, f"resumed tail differs by {tail_d} > 1e-6")
+
+    # ---- f. the overlay -----------------------------------------------------
+    ppms = sorted(os.listdir(ppm_dir))
+    log(f"overlay: {len(ppms)} PPMs for {len(cube_in_front)} calls; (frame, "
+        f"cube ahead, cube drawn): {cube_in_front}")
+    require(len(ppms) == len(cube_in_front) > 0,
+            f"{len(ppms)} PPMs for {len(cube_in_front)} overlay calls")
+    require(any(a for _, a, _ in cube_in_front),
+            "the cube was never in front of the camera")
+    for i, ahead, drawn in cube_in_front:
+        require(drawn or not ahead, f"frame {i}: the cube is in front of "
+                "the camera but no face colour was drawn")
+    return {"card": label, "frames": N_ORBIT, "resolution": [w, h],
+            "ate": ate, "keyframes": len(kf_ms), "keyframes_live": n_kf,
+            "local_ba_runs": n_ba, "tracked": n_tracked,
+            "median_ms": statistics.median(track_ms),
+            "median_kf_ms": statistics.median(kf_ms) if kf_ms else None,
+            "feeder_wait_ms_per_frame": wait_ms,
+            "h2d_copy_ms_per_frame": copy_ms,
+            "write_s": write_s, "yuv_rgb_err": yuv_err, "yuv_rgb_ms": yuv_ms,
+            "tail_max_abs_d": tail_d, "overlay_ppms": len(ppms),
+            "launches": launches, "launches_per_frame": per_frame,
+            "gate_err": gate.max_abs_err, "profile": prof,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -489,6 +768,7 @@ def main() -> int:
         return 3
 
     from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
     from android_svo_tpu_torch.core import pipeline
     from android_svo_tpu_torch.data import synthetic
     from android_svo_tpu_torch.ops import cuda_build, interp, silicon_gate
@@ -525,10 +805,11 @@ def main() -> int:
     require(gate.ok, f"kernel gate failed: {gate.failures}")
     calls = silicon_gate.kernel_calls(x)
     bounds = kernel_bounds(x, pk)
-    lib_ms = {"sample_patches_kernel": library_sample_ms(x)}
-    log(f"grid_sample for sample_patches_kernel: "
-        f"{lib_ms['sample_patches_kernel'][0]:.4f} ms, device "
-        f"{lib_ms['sample_patches_kernel'][1]} ms [{label}]")
+    lib_ms = {"sample_patches_kernel": library_sample_ms(x),
+              "sample_patches_kernel/align1d": library_align1d_ms(x)}
+    for name, (l_ms, l_dev) in lib_ms.items():
+        log(f"grid_sample for {name}: {l_ms:.4f} ms, device {l_dev} ms "
+            f"[{label}]")
     pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
     # what the redesigned wrappers dispatch per call on the host
     dispatch = {
@@ -717,7 +998,10 @@ def main() -> int:
         require(cnt > 0, f"{name} was not launched on the main path")
 
     # ---- 4b. where a tracking frame's time goes (profiled, steady state) --
-    prof = profile_frames(cfg, cam, imgs, dev, 30, 6)
+    warm = fh.FrameHandler(cam, cfg, device=dev)
+    for img in imgs[:30]:
+        warm.add_image(img)
+    prof, _ = profile_frames(warm, imgs[30:36])
     prof["idle_share"] = 1.0 - prof["device_busy_ms"] / run_k["median_ms"]
     prof["card"] = label
     print(json.dumps({"profile": prof}), flush=True)
@@ -769,7 +1053,6 @@ def main() -> int:
 
     # make_track_scan from a fresh handler's steady state, held against the
     # ground truth and against the handler run above over the same frames
-    from android_svo_tpu_torch.core import frame_handler as fh
     from android_svo_tpu_torch.evals.trajectory import ate_rmse
     fresh = fh.FrameHandler(cam, cfg_d, device=dev)
     est_s, gt_s = [], []
@@ -946,6 +1229,13 @@ def main() -> int:
         f"call on the kernels (10 sampler launches), {a1d_plain_ms:.4f} ms "
         f"plain [{label}]")
 
+    # ---- 9. the dataset path at EuRoC MH_01 cam0's geometry ---------------
+    build_dir = os.path.join(here, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+        ds = dataset_phase(dev, label, workdir)
+    log(f"dataset phase: {ds['phase_s']:.1f} s [{label}]")
+
     kernels = []
     for name in ("sample_patches_kernel", "align_iclk_window_kernel",
                  "epi_scan_kernel", "align_iclk_kernel"):
@@ -958,10 +1248,13 @@ def main() -> int:
                                  "default": launches_d[name],
                                  "reloc": launches_r[name],
                                  "lm": launches_lm[name],
-                                 "edgelets": launches_e[name]},
+                                 "edgelets": launches_e[name],
+                                 "dataset": ds["launches"][name]},
             "launches_per_frame": {"lm": per_lm[name],
-                                   "edgelets": per_e[name]},
-            "max_abs_err": gate.max_abs_err.get(name, 0.0), "ms": k_ms,
+                                   "edgelets": per_e[name],
+                                   "dataset": ds["launches_per_frame"][name]},
+            "max_abs_err": gate.max_abs_err.get(name, 0.0),
+            "max_abs_err_752x480": ds["gate_err"].get(name, 0.0), "ms": k_ms,
             "kernel_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": b_bytes, "bound_flops": b_flops,
             "library_ms": lib_ms.get(name, (None, None))[0],
@@ -976,7 +1269,10 @@ def main() -> int:
                 forms[form.split("/")[1]] = {
                     "ms": f_ms, "kernel_ms": f_d_ms, "plain_ms": f_p_ms,
                     "bound_ms": bounds[form][0], "bound_by": bounds[form][1],
-                    "max_abs_err": gate.max_abs_err.get(form, 0.0)}
+                    "max_abs_err": gate.max_abs_err.get(form, 0.0),
+                    "max_abs_err_752x480": ds["gate_err"].get(form, 0.0),
+                    "library_ms": lib_ms.get(form, (None, None))[0],
+                    "library_kernel_ms": lib_ms.get(form, (None, None))[1]}
         if forms:
             kernels[-1]["forms"] = forms
     pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
@@ -1045,6 +1341,8 @@ def main() -> int:
                      "align1d_ms_per_call": a1d_ms,
                      "align1d_plain_ms_per_call": a1d_plain_ms}}}),
           flush=True)
+    print(json.dumps({"dataset": {k: v for k, v in ds.items()
+                                  if k != "gate_err"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

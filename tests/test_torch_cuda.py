@@ -440,3 +440,78 @@ def test_scan_nonfinite_ends_read_as_zero(problem):
     torch.cuda.synchronize()
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+# ---- the dataset path: feeder ring, YUV, loader and handler devices -------
+
+def _write_frames(root, n, h, w, seed):
+    import numpy as np
+    from android_svo_tpu_torch.data import euroc
+    rng = np.random.default_rng(seed)
+    imgs = [rng.integers(0, 256, (h, w), np.uint8) for _ in range(n)]
+    stamps = [1403636579763555584 + i * 50_000_000 for i in range(n)]
+    paths = euroc.write_euroc(str(root), imgs, stamps,
+                              dict(euroc.MH01_CAM0, resolution=(w, h)))
+    return imgs, paths
+
+
+def test_feeder_ring_reuses_slots_safely(card, tmp_path):
+    """Two pinned slots for 8 frames, with the stream held busy after each
+    frame (its copy queued behind the delay): a slot rewritten before its
+    copy ran would show in a frame kept to the end."""
+    from android_svo_tpu_torch.data import native_feeder
+    imgs, paths = _write_frames(tmp_path, 8, 480, 752, seed=5)
+    feeder = native_feeder.NativeFrameFeeder(paths, capacity=2, n_threads=4,
+                                             device=card)
+    kept = []
+    for idx, frame in feeder:
+        assert frame.device.type == "cuda" and frame.dtype == torch.float32
+        kept.append((idx, frame))
+        torch.cuda._sleep(20_000_000)
+    feeder.close()
+    assert [i for i, _ in kept] == list(range(8))
+    torch.cuda.synchronize()
+    for (i, frame), img in zip(kept, imgs):
+        assert torch.equal(frame.cpu(), torch.from_numpy(img).float()), i
+
+
+def test_yuv420_to_rgb_on_card_matches_cpu(card):
+    """The conversion on the card against its CPU result on seeded planes
+    at the app's 640x480: max |d| <= 1e-4."""
+    import numpy as np
+    from android_svo_tpu_torch.data import yuv
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.integers(0, 256, (480, 640), np.uint8))
+    u = torch.from_numpy(rng.integers(0, 256, (240, 320), np.uint8))
+    v = torch.from_numpy(rng.integers(0, 256, (240, 320), np.uint8))
+    want = yuv.yuv420_to_rgb(y, u, v)
+    got = yuv.yuv420_to_rgb(y.to(card), u.to(card), v.to(card))
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert torch.equal(yuv.yuv420_to_gray(y.to(card)).cpu(), y.float())
+
+
+def test_load_euroc_builds_the_camera_on_the_card(card, tmp_path):
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.data import euroc
+    _write_frames(tmp_path, 2, 48, 64, seed=6)
+    seq = euroc.load_euroc(str(tmp_path))
+    for name in ("fx", "fy", "cx", "cy", "dist"):
+        assert getattr(seq.camera, name).device.type == "cuda", name
+    assert not seq.camera.distortion_free
+    assert fh.FrameHandler(seq.camera).device.type == "cuda"
+
+
+def test_handler_takes_device_and_pinned_frames(card):
+    """A frame already on the card is tracked as it is (no copy); a pinned
+    host frame is copied to the card."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.data import synthetic
+    handler = fh.FrameHandler(synthetic.default_camera(64, 48),
+                              SVOConfig(loba_n_iter=0))
+    frame = torch.rand((48, 64), device=card) * 255
+    assert handler._frame(frame).data_ptr() == frame.data_ptr()
+    pinned = frame.cpu().pin_memory()
+    got = handler._frame(pinned)
+    assert got.device.type == "cuda" and torch.equal(got, frame)

@@ -65,12 +65,15 @@ def _no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["frame_handler", "init_state",
-                                   "camera", "texture", "reloc_demo"])
-def test_entry_points_refuse_cpu_fallback(monkeypatch, entry):
+                                   "camera", "texture", "reloc_demo",
+                                   "load_euroc", "load_tum",
+                                   "native_feeder"])
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
     """Without a card, an entry point called without `device` raises
     instead of running on the CPU."""
     from android_svo_tpu_torch.core import frame_handler as fh
-    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.data import euroc, native_feeder, synthetic
+    from android_svo_tpu_torch.data import tum
     from android_svo_tpu_torch.tools import reloc_demo
     _no_cuda(monkeypatch)
     cpu_cam = synthetic.default_camera(64, 48, device="cpu")
@@ -84,6 +87,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, entry):
             synthetic.default_camera(64, 48)
         elif entry == "texture":
             synthetic.make_texture(torch.Generator().manual_seed(0), 64)
+        elif entry == "load_euroc":
+            euroc.load_euroc(str(tmp_path))
+        elif entry == "load_tum":
+            tum.load_tum(str(tmp_path))
+        elif entry == "native_feeder":
+            native_feeder.NativeFrameFeeder([str(tmp_path / "0.png")])
         else:
             reloc_demo.run(frames=2, width=64, height=48, trace=None)
 
