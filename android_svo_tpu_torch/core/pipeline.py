@@ -12,6 +12,7 @@ keyframe arena and the last frame never alias.  Each stage is a
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as _pytree
 from torch.profiler import record_function
 
 from android_svo_tpu_torch.config import SVOConfig
@@ -197,17 +198,27 @@ def select_kf_slot(vo: st.VOState, T_cw: SE3) -> torch.Tensor:
     return torch.where(any_free, first_free, furthest).to(torch.int64)
 
 
-def _set_slot(table: torch.Tensor, slot: torch.Tensor, row):
-    """table.at[slot].set(row) for a (K, ...) arena and a 0-d slot."""
+def _set_slot(table: torch.Tensor, slot: torch.Tensor, row, commit=None):
+    """table.at[slot].set(row) for a (K, ...) arena and a 0-d slot; with a
+    0-d bool `commit`, the slot's old row is written back where it is false
+    (one row moves, not the arena)."""
     out = table.clone()
+    if commit is not None:
+        row = torch.where(commit, torch.as_tensor(row, dtype=table.dtype,
+                                                device=table.device),
+                          out[slot])
     out[slot] = row
     return out
 
 
 def insert_keyframe(vo: st.VOState, cur_pyr, cur_stack, T_cw: SE3, feats,
-                    cam, cfg: SVOConfig, dims) -> st.VOState:
+                    cam, cfg: SVOConfig, dims, commit=None) -> st.VOState:
     """Write the current frame into the keyframe arena: adopt candidate
-    points, record observations, detect new corners, spawn seeds."""
+    points, record observations, detect new corners, spawn seeds.
+
+    `commit` (a 0-d bool, for the batched step under vmap) keeps the state
+    as it was where it is false: the keyframe arena's rows are written
+    back, the other arenas selected."""
     dtype = cur_stack.dtype
     dev = cur_stack.device
     C = dims["C"]
@@ -290,20 +301,20 @@ def insert_keyframe(vo: st.VOState, cur_pyr, cur_stack, T_cw: SE3, feats,
     # ---- write the keyframe -------------------------------------------------
     kfs = vo.kfs
     kfs = kfs.replace(
-        stack=_set_slot(kfs.stack, slot, cur_stack),
-        q_kw=_set_slot(kfs.q_kw, slot, T_cw.q),
-        t_kw=_set_slot(kfs.t_kw, slot, T_cw.t),
-        valid=_set_slot(kfs.valid, slot, True),
-        frame_id=_set_slot(kfs.frame_id, slot, vo.frame_id),
-        scene_depth=_set_slot(kfs.scene_depth, slot, depth_med),
-        ftr_px=_set_slot(kfs.ftr_px, slot, feats["px"]),
-        ftr_f=_set_slot(kfs.ftr_f, slot, feats["f"]),
-        ftr_level=_set_slot(kfs.ftr_level, slot, feats["level"]),
+        stack=_set_slot(kfs.stack, slot, cur_stack, commit),
+        q_kw=_set_slot(kfs.q_kw, slot, T_cw.q, commit),
+        t_kw=_set_slot(kfs.t_kw, slot, T_cw.t, commit),
+        valid=_set_slot(kfs.valid, slot, True, commit),
+        frame_id=_set_slot(kfs.frame_id, slot, vo.frame_id, commit),
+        scene_depth=_set_slot(kfs.scene_depth, slot, depth_med, commit),
+        ftr_px=_set_slot(kfs.ftr_px, slot, feats["px"], commit),
+        ftr_f=_set_slot(kfs.ftr_f, slot, feats["f"], commit),
+        ftr_level=_set_slot(kfs.ftr_level, slot, feats["level"], commit),
         ftr_point=_set_slot(
             kfs.ftr_point, slot,
             torch.where(feats["valid"], feats["point"],
-                        torch.full_like(feats["point"], -1))),
-        ftr_valid=_set_slot(kfs.ftr_valid, slot, feats["valid"]),
+                        torch.full_like(feats["point"], -1)), commit),
+        ftr_valid=_set_slot(kfs.ftr_valid, slot, feats["valid"], commit),
     )
 
     # ---- detect new corners in unoccupied cells, spawn seeds ----------------
@@ -347,6 +358,12 @@ def insert_keyframe(vo: st.VOState, cur_pyr, cur_stack, T_cw: SE3, feats,
         patch_level=set_rows(seeds.patch_level, dst, slv_new[src]),
         patch_frame=set_rows(seeds.patch_frame, dst, vo.frame_id))
 
+    if commit is not None:
+        def keep(new, old):
+            return torch.where(commit, new, old)
+        pts = _pytree.tree_map(keep, pts, vo.points)
+        seeds = _pytree.tree_map(keep, seeds, vo.seeds)
+        batch = keep(batch, vo.kf_batch)
     return vo.replace(kfs=kfs, points=pts, seeds=seeds, kf_batch=batch)
 
 
@@ -370,115 +387,145 @@ def need_new_keyframe(vo: st.VOState, T_cw: SE3, scene_depth, cam,
 # the tracking step
 # ---------------------------------------------------------------------------
 
+def frame_pyramid(img: torch.Tensor, cfg: SVOConfig):
+    """The frame's pyramid (a tuple of levels) and its padded stack."""
+    with record_function("pyramid_creation"):
+        cur_pyr = build_pyramid(img, cfg.total_pyr_levels)
+        return cur_pyr, stack_from_pyramid(cur_pyr)
+
+
+def align_inputs(vo: st.VOState):
+    """Sparse alignment's reference: the last frame's features with their
+    depths and which of them carry a live landmark."""
+    last = vo.last
+    p_w = gather_rows(vo.points.pos, last.ftr_point)
+    last_cam_pos = last.T_fw.inverse().t
+    depth_last = torch.linalg.norm(p_w - last_cam_pos, dim=-1)
+    has_pt = (last.ftr_valid & (last.ftr_point >= 0)
+              & gather_rows(vo.points.valid, last.ftr_point))
+    return depth_last, has_pt
+
+
+def track_map(vo: st.VOState, cur_stack, T_cur_last: SE3, cam,
+              cfg: SVOConfig, dims):
+    """STEPS 2-5 and the keyframe decision: map reprojection, pose and
+    structure optimisation, the quality gate, the depth-filter update.
+    Returns (vo, feats, T_final, cov, failure, make_kf, n_matches,
+    n_edges)."""
+    T_cw = T_cur_last.compose(vo.last.T_fw)
+
+    # STEP 2: map reprojection + feature alignment
+    with record_function("reproject"):
+        feats, points2, n_matches = reproject_map(vo, cur_stack, T_cw,
+                                                  cam, cfg, dims)
+        vo = vo.replace(points=points2)
+
+    # STEP 3: pose optimization
+    with record_function("pose_optimizer"):
+        p_w = gather_rows(vo.points.pos, feats["point"])
+        T_cw_opt, inlier, n_edges, cov, _, _ = optimize_pose(
+            T_cw, p_w, feats["f"], feats["level"], feats["valid"],
+            cam.errorMultiplier2(), cfg)
+        feats["valid"] = feats["valid"] & inlier
+        feats["point"] = torch.where(feats["valid"], feats["point"],
+                                     torch.full_like(feats["point"], -1))
+
+    # STEP 4: structure optimization
+    with record_function("point_optimizer"):
+        pts = vo.points
+        slots, sel = select_points_for_optim(
+            pts.last_optim, pts.valid & (pts.obs_count >= 2),
+            cfg.structureoptim_max_pts)
+        obs_kf = pts.obs_kf[slots]
+        ks = torch.clamp(obs_kf, min=0).to(torch.int64)
+        obs_ok = (obs_kf >= 0) & vo.kfs.valid[ks]
+        pos_new, _ = optimize_points(
+            pts.pos[slots], vo.kfs.q_kw[ks], vo.kfs.t_kw[ks],
+            pts.obs_f[slots], obs_ok, sel, cfg.structureoptim_n_iter,
+            method=cfg.structureoptim_method)
+        pts = pts.replace(
+            pos=set_rows(pts.pos, slots, torch.where(
+                sel[:, None], pos_new, pts.pos[slots])),
+            last_optim=set_rows(pts.last_optim, slots, torch.where(
+                sel, vo.frame_id, pts.last_optim[slots])))
+        vo = vo.replace(points=pts)
+
+    # quality gate
+    n_last = torch.sum(vo.last.ftr_valid).to(torch.int32)
+    tracking_bad = (n_edges < cfg.quality_min_fts) | (
+        (n_last - n_edges) > cfg.quality_max_drop_fts)
+    failure = tracking_bad | (n_matches < cfg.min_reproj_matches)
+    T_final = SE3(q=torch.where(failure, vo.last.q_fw, T_cw_opt.q),
+                  t=torch.where(failure, vo.last.t_fw, T_cw_opt.t))
+
+    # STEP 5: depth-filter update
+    with record_function("depth_filter"):
+        vo = update_seeds(vo, cur_stack, T_final, cam, cfg)
+
+    # STEP 6 (decision): a keyframe where no keyframe is close
+    with record_function("keyframe"):
+        xyz_cur = T_final.apply(gather_rows(vo.points.pos, feats["point"]))
+        scene_depth = masked_median(xyz_cur[..., 2], feats["valid"])
+        scene_depth = torch.where(torch.isfinite(scene_depth), scene_depth,
+                                  torch.ones_like(scene_depth))
+        make_kf = (~failure) & need_new_keyframe(vo, T_final, scene_depth,
+                                                 cam, cfg)
+    return vo, feats, T_final, cov, failure, make_kf, n_matches, n_edges
+
+
+def finish_frame(vo: st.VOState, cur_stack, T_final: SE3, feats, cov,
+                 failure, make_kf, n_tracked, n_matches, n_edges):
+    """The frame becomes the last frame; the step's outputs."""
+    last_new = st.FrameState(
+        stack=cur_stack, q_fw=T_final.q, t_fw=T_final.t,
+        ftr_px=feats["px"], ftr_f=feats["f"], ftr_level=feats["level"],
+        ftr_point=feats["point"], ftr_valid=feats["valid"])
+    vo = vo.replace(last=last_new, frame_id=vo.frame_id + 1, pose_cov=cov)
+    result = torch.where(failure, RES_FAILURE,
+                         torch.where(make_kf, RES_IS_KEYFRAME,
+                                     RES_NO_KEYFRAME))
+    out = {
+        "T_cw": T_final,
+        "t_wc": T_final.inverse().t,
+        "result": result,
+        "n_tracked": n_tracked,
+        "n_matches": n_matches,
+        "n_edges": n_edges,
+        "n_seeds": torch.sum(vo.seeds.valid).to(torch.int32),
+        "n_points": torch.sum(vo.points.valid).to(torch.int32),
+    }
+    return vo, out
+
+
 def make_track_frame(cfg: SVOConfig, cam, dims):
     """Build `track_frame(vo, img) -> (vo, out)`; the step runs on the
-    device the state and image live on."""
+    device the state and image live on.  Its stages (`frame_pyramid`,
+    `align_inputs`, `sparse_img_align`, `track_map`, `insert_keyframe`,
+    `finish_frame`) are the batched step's too
+    (`parallel/multi_seq.py`)."""
 
     def track_frame(vo: st.VOState, img: torch.Tensor):
-        dtype = img.dtype
-        dev = img.device
-        with record_function("pyramid_creation"):
-            cur_pyr = build_pyramid(img, cfg.total_pyr_levels)
-            cur_stack = stack_from_pyramid(cur_pyr)
+        cur_pyr, cur_stack = frame_pyramid(img, cfg)
 
         # STEP 1: sparse image alignment against the last frame
-        last = vo.last
         with record_function("sparse_img_align"):
-            p_w = gather_rows(vo.points.pos, last.ftr_point)
-            last_cam_pos = last.T_fw.inverse().t
-            depth_last = torch.linalg.norm(p_w - last_cam_pos, dim=-1)
-            has_pt = (last.ftr_valid & (last.ftr_point >= 0)
-                      & gather_rows(vo.points.valid, last.ftr_point))
+            depth_last, has_pt = align_inputs(vo)
+            last = vo.last
             T_cur_last, n_tracked, _ = sparse_img_align(
                 last.stack, cur_stack, cam,
-                SE3.identity(dtype=dtype, device=dev),
+                SE3.identity(dtype=img.dtype, device=img.device),
                 last.ftr_px, last.ftr_f, depth_last, has_pt, cfg)
-            T_cw = T_cur_last.compose(last.T_fw)
 
-        # STEP 2: map reprojection + feature alignment
-        with record_function("reproject"):
-            feats, points2, n_matches = reproject_map(vo, cur_stack, T_cw,
-                                                      cam, cfg, dims)
-            vo = vo.replace(points=points2)
+        vo, feats, T_final, cov, failure, make_kf, n_matches, n_edges = \
+            track_map(vo, cur_stack, T_cur_last, cam, cfg, dims)
 
-        # STEP 3: pose optimization
-        with record_function("pose_optimizer"):
-            p_w = gather_rows(vo.points.pos, feats["point"])
-            T_cw_opt, inlier, n_edges, cov, _, _ = optimize_pose(
-                T_cw, p_w, feats["f"], feats["level"], feats["valid"],
-                cam.errorMultiplier2(), cfg)
-            feats["valid"] = feats["valid"] & inlier
-            feats["point"] = torch.where(feats["valid"], feats["point"],
-                                         torch.full_like(feats["point"], -1))
-
-        # STEP 4: structure optimization
-        with record_function("point_optimizer"):
-            pts = vo.points
-            slots, sel = select_points_for_optim(
-                pts.last_optim, pts.valid & (pts.obs_count >= 2),
-                cfg.structureoptim_max_pts)
-            obs_kf = pts.obs_kf[slots]
-            ks = torch.clamp(obs_kf, min=0).to(torch.int64)
-            obs_ok = (obs_kf >= 0) & vo.kfs.valid[ks]
-            pos_new, _ = optimize_points(
-                pts.pos[slots], vo.kfs.q_kw[ks], vo.kfs.t_kw[ks],
-                pts.obs_f[slots], obs_ok, sel, cfg.structureoptim_n_iter,
-                method=cfg.structureoptim_method)
-            pts = pts.replace(
-                pos=set_rows(pts.pos, slots, torch.where(
-                    sel[:, None], pos_new, pts.pos[slots])),
-                last_optim=set_rows(pts.last_optim, slots, torch.where(
-                    sel, vo.frame_id, pts.last_optim[slots])))
-            vo = vo.replace(points=pts)
-
-        # quality gate
-        n_last = torch.sum(vo.last.ftr_valid).to(torch.int32)
-        tracking_bad = (n_edges < cfg.quality_min_fts) | (
-            (n_last - n_edges) > cfg.quality_max_drop_fts)
-        failure = tracking_bad | (n_matches < cfg.min_reproj_matches)
-        T_final = SE3(q=torch.where(failure, vo.last.q_fw, T_cw_opt.q),
-                      t=torch.where(failure, vo.last.t_fw, T_cw_opt.t))
-
-        # STEP 5: depth-filter update
-        with record_function("depth_filter"):
-            vo = update_seeds(vo, cur_stack, T_final, cam, cfg)
-
-        # STEP 6: keyframe decision + insertion
+        # STEP 6: keyframe insertion (the step's one host read)
         with record_function("keyframe"):
-            xyz_cur = T_final.apply(gather_rows(vo.points.pos,
-                                                feats["point"]))
-            scene_depth = masked_median(xyz_cur[..., 2], feats["valid"])
-            scene_depth = torch.where(torch.isfinite(scene_depth),
-                                      scene_depth,
-                                      torch.ones_like(scene_depth))
-            make_kf = (~failure) & need_new_keyframe(vo, T_final,
-                                                     scene_depth, cam, cfg)
-            make_kf_host = bool(make_kf.item())
-            if make_kf_host:
+            if bool(make_kf.item()):
                 vo = insert_keyframe(vo, cur_pyr, cur_stack, T_final, feats,
                                      cam, cfg, dims)
-
-        last_new = st.FrameState(
-            stack=cur_stack, q_fw=T_final.q, t_fw=T_final.t,
-            ftr_px=feats["px"], ftr_f=feats["f"], ftr_level=feats["level"],
-            ftr_point=feats["point"], ftr_valid=feats["valid"])
-        vo = vo.replace(last=last_new, frame_id=vo.frame_id + 1,
-                        pose_cov=cov)
-
-        result = torch.where(
-            failure, RES_FAILURE,
-            RES_IS_KEYFRAME if make_kf_host else RES_NO_KEYFRAME)
-        out = {
-            "T_cw": T_final,
-            "t_wc": T_final.inverse().t,
-            "result": result,
-            "n_tracked": n_tracked,
-            "n_matches": n_matches,
-            "n_edges": n_edges,
-            "n_seeds": torch.sum(vo.seeds.valid).to(torch.int32),
-            "n_points": torch.sum(vo.points.valid).to(torch.int32),
-        }
-        return vo, out
+        return finish_frame(vo, cur_stack, T_final, feats, cov, failure,
+                            make_kf, n_tracked, n_matches, n_edges)
 
     return track_frame
 

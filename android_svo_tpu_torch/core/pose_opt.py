@@ -11,6 +11,7 @@ from android_svo_tpu_torch.geometry import robust
 from android_svo_tpu_torch.geometry.camera import project2d
 from android_svo_tpu_torch.geometry.linsolve import inv_spd, solve_spd
 from android_svo_tpu_torch.geometry.se3 import SE3
+from android_svo_tpu_torch.ops.reduce import fixed_sum
 from android_svo_tpu_torch.ops.sparse_align import _geo_jacobian
 
 
@@ -42,19 +43,21 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
     e0, _, ok0 = residuals(T_fw_init)
     enorm0 = torch.linalg.norm(e0, dim=-1)
     scale0 = torch.clamp(robust.mad_scale(enorm0, ok0), min=1e-7)
-    chi2_init = torch.sum(enorm0 * enorm0)
+    chi2_init = fixed_sum(enorm0 * enorm0, 1)
     scale_fixed = (0.85 / focal).to(dtype)
 
     def weighted_chi2(T: SE3, it_scale):
         e, xyz_f, ok = residuals(T)
         enorm = torch.linalg.norm(e, dim=-1)
         w = robust.tukey_weight(enorm / it_scale) * ok.to(dtype)
-        return torch.sum(w * enorm * enorm), e, xyz_f, ok, w
+        return fixed_sum(w * enorm * enorm, 1), e, xyz_f, ok, w
 
     def normal_eq(xyz_f, w):
         J = _geo_jacobian(xyz_f) * lvl_scale[:, None, None]
         Jw = J * w[:, None, None]
-        return J, Jw, torch.einsum("cij,cik->jk", Jw, J)
+        # the normal equations' sums in a fixed order (ops/reduce.py): the
+        # batched step rounds them as each sequence's single step does
+        return J, Jw, fixed_sum(Jw[..., :, None] * J[..., None, :], 2)
 
     q, t = T_fw_init.q, T_fw_init.t
     # LM damping; nothing is made for GN (no device work on the default path)
@@ -65,10 +68,10 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
         T = SE3(q=q, t=t)
         chi2, e, xyz_f, ok, w = weighted_chi2(T, it_scale)
         J, Jw, H = normal_eq(xyz_f, w)
-        g = torch.einsum("cij,ci->j", Jw, e)
+        g = fixed_sum(Jw * e[..., None], 2)
         if lm:
             H = H + mu * torch.diag(torch.diag(H))
-        H = H + 1e-6 * eye6 * (torch.trace(H) / 6.0 + 1.0)
+        H = H + 1e-6 * eye6 * (torch.diagonal(H).sum() / 6.0 + 1.0)
         dx = solve_spd(H, -g)
         T_new = SE3.exp(dx).compose(T).normalize()
         chi2_new = weighted_chi2(T_new, it_scale)[0]
@@ -87,8 +90,8 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
     inlier = ok & (enorm < thresh)
     w = robust.tukey_weight(enorm / scale) * ok.to(dtype)
     _, _, H = normal_eq(xyz_f, w)
-    H = H + 1e-6 * eye6 * (torch.trace(H) / 6.0 + 1.0)
+    H = H + 1e-6 * eye6 * (torch.diagonal(H).sum() / 6.0 + 1.0)
     cov = inv_spd(H)
-    chi2_final = torch.sum(enorm * enorm)
+    chi2_final = fixed_sum(enorm * enorm, 1)
     return (T_out, inlier, torch.sum(inlier).to(torch.int32), cov,
             chi2_init, chi2_final)

@@ -38,7 +38,9 @@ def closest_view_obs(pts: st.PointArena, kfs: st.KeyframeArena,
     dir_obs = pts.pos[:, None, :] - obs_cam_pos
     dir_obs = dir_obs / torch.clamp(
         torch.linalg.norm(dir_obs, dim=-1, keepdim=True), min=1e-9)
-    cosang = torch.einsum("poi,pi->po", dir_obs, dir_cur)
+    # products and a 3-term sum (a batched matrix product rounds
+    # differently with a leading batch)
+    cosang = (dir_obs * dir_cur[:, None, :]).sum(-1)
     obs_ok = (pts.obs_kf >= 0) & kfs.valid[ks]
     cosang = torch.where(obs_ok, cosang, torch.full_like(cosang,
                                                          float("-inf")))

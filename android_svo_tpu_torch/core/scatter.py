@@ -5,7 +5,9 @@
 torch raises on the CPU and asserts on the device for out-of-range indices,
 so every out-of-range (sentinel) index is redirected to one padding row that
 is sliced off afterwards.  Callers keep real indices unique: a duplicate
-write has no defined order on the device.
+write has no defined order on the device.  Every write is out of place, so
+the helpers run under `torch.func.vmap` also where the written tensor is
+made inside the function and the indices carry the batch.
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ def set_rows(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """dst.at[idx].set(val, mode="drop") along dim 0 (a new tensor)."""
     n = dst.shape[0]
     out = torch.cat([dst, dst[:1]], dim=0)
-    if torch.is_tensor(val):
-        val = val.to(dst.dtype)
-    out[_redirect(idx, n)] = val
-    return out[:n]
+    val = torch.as_tensor(val, dtype=dst.dtype, device=dst.device)
+    return out.index_put((_redirect(idx, n),), val)[:n]
 
 
 def add_rows(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
@@ -36,8 +36,7 @@ def add_rows(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     if not torch.is_tensor(val):
         val = torch.full(ridx.shape + dst.shape[1:], val, dtype=dst.dtype,
                          device=dst.device)
-    out.index_add_(0, ridx, val.to(dst.dtype))
-    return out[:n]
+    return out.index_add(0, ridx, val.to(dst.dtype))[:n]
 
 
 def compact(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -48,8 +47,7 @@ def compact(mask: torch.Tensor, size: int) -> torch.Tensor:
     keep = mask & (pos < size)
     dst = torch.where(keep, pos, torch.full_like(pos, size))
     out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
-    out[dst] = torch.arange(n, device=mask.device)
-    return out[:size]
+    return out.scatter(0, dst, torch.arange(n, device=mask.device))[:size]
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

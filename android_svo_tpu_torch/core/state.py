@@ -9,6 +9,11 @@ unproven; TYPE_GOOD(3) -> enough successful reprojections.
 by the JAX dataclasses' field paths (`kfs.stack`, `points.obs_kf`,
 `seeds.mu`, `last.q_fw`, `frame_id`, ...), so a state built by either
 package can be handed to the other as numpy arrays.
+
+The state's dataclasses are pytree nodes (`torch.utils._pytree`), so a
+state passes through `torch.func.vmap` whole.  A batched state has a leading
+batch axis on every tensor: `init_batched_state`, `stack_states` and
+`unstack_state` make and split one.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 from android_svo_tpu_torch import resolve_device
 from android_svo_tpu_torch.config import SVOConfig
@@ -186,6 +192,38 @@ _SUBS = {"kfs": KeyframeArena, "points": PointArena, "seeds": SeedArena,
          "last": FrameState}
 
 
+def _register_pytree(cls) -> None:
+    names = [f.name for f in dataclasses.fields(cls)]
+    _pytree.register_pytree_node(
+        cls, lambda x: ([getattr(x, n) for n in names], None),
+        lambda children, _: cls(**dict(zip(names, children))))
+
+
+for _cls in (*_SUBS.values(), VOState):
+    _register_pytree(_cls)
+
+
+def init_batched_state(cfg: SVOConfig, width: int, height: int, batch: int,
+                       dtype=torch.float32, device=None) -> VOState:
+    """`batch` fresh states stacked along a leading axis (real copies: the
+    batched step writes into them)."""
+    one = init_state(cfg, width, height, dtype=dtype, device=device)
+    return _pytree.tree_map(
+        lambda x: x.expand((batch,) + tuple(x.shape)).clone(), one)
+
+
+def stack_states(states) -> VOState:
+    """Stack per-sequence states (same config and shapes) along a new
+    leading batch axis."""
+    return _pytree.tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def unstack_state(vo_b: VOState) -> list:
+    """The per-sequence states of a batched state (views of its rows)."""
+    batch = vo_b.frame_id.shape[0]
+    return [_pytree.tree_map(lambda x, i=i: x[i], vo_b) for i in range(batch)]
+
+
 def field_paths() -> list:
     """Every tensor of a state by its field path, in declaration order —
     the order the JAX state's pytree flattens in."""
@@ -211,18 +249,19 @@ def state_to_numpy(vo: VOState) -> dict:
     return {k: get_field(vo, k).detach().cpu().numpy() for k in field_paths()}
 
 
+def from_fields(d: dict) -> VOState:
+    """A state from a flat {field path: tensor} dict."""
+    parts = {name: cls(**{g.name: d[f"{name}.{g.name}"]
+                          for g in dataclasses.fields(cls)})
+             for name, cls in _SUBS.items()}
+    rest = {f.name: d[f.name] for f in dataclasses.fields(VOState)
+            if f.name not in _SUBS}
+    return VOState(**parts, **rest)
+
+
 def state_from_numpy(d: dict, device=None) -> VOState:
     """Build a state from a flat {field path: array} dict (the inverse of
     `state_to_numpy`, and the format the JAX state flattens to)."""
     dev = resolve_device(device)
-
-    def t(key):
-        return torch.from_numpy(np.array(d[key], copy=True)).to(dev)
-
-    parts = {}
-    for name, cls in _SUBS.items():
-        parts[name] = cls(**{g.name: t(f"{name}.{g.name}")
-                             for g in dataclasses.fields(cls)})
-    rest = {f.name: t(f.name) for f in dataclasses.fields(VOState)
-            if f.name not in _SUBS}
-    return VOState(**parts, **rest)
+    return from_fields({k: torch.from_numpy(np.array(d[k], copy=True)).to(dev)
+                        for k in field_paths()})

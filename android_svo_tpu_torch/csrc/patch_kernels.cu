@@ -24,6 +24,13 @@
 // takes over its wrapper's conversions and arithmetic (see each kernel's
 // note): a wrapper allocates its outputs and launches once.
 //
+// Batches: every kernel takes a stack of B frames' pyramids, (B, L, Hp, Wp)
+// with batch stride s_b, and B * n_per feature rows, n_per per frame; row i
+// reads frame i / n_per.  Only the plane pointer changes: the level is still
+// clamped to [0, L-1] and the level's true size still derived from it, so
+// s_b = 0 (or B = 1 with n_per = n) is the single-frame launch, bit for bit.
+// One launch serves the whole batch (the batched tracking step's kernels).
+//
 // Plain C interface (route (b) of the build: nvcc -shared, bound with ctypes).
 // Every launcher returns the cudaError_t of the launch; the caller raises.
 
@@ -110,11 +117,11 @@ __device__ __forceinline__ float finite_or_zero(float x) {
 }
 
 __global__ void sample_patches_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r,
-    int L, int H, int W, const int* __restrict__ lvl,
+    const float* __restrict__ stack, long long s_b, long long s_l,
+    long long s_r, int L, int H, int W, const int* __restrict__ lvl,
     const float* __restrict__ uv, long long s_un, long long s_uc,
-    const unsigned char* __restrict__ valid, int n, int half, int grad,
-    int per_block, float* __restrict__ out) {
+    const unsigned char* __restrict__ valid, int n, int n_per, int half,
+    int grad, int per_block, float* __restrict__ out) {
   extern __shared__ float grid[];          // per_block x (p+2)^2 when grad
   const int p = 2 * half;
   const int area = p * p;
@@ -128,7 +135,8 @@ __global__ void sample_patches_kernel(
     const int g = e % sarea;
     float val = 0.0f;
     if (valid == nullptr || valid[i]) {
-      const float* img = stack + (long long)norm_level(lvl[i], L) * s_l;
+      const float* img = stack + (long long)(i / n_per) * s_b
+                       + (long long)norm_level(lvl[i], L) * s_l;
       const float u = finite_or_zero(uv[i * s_un]);
       const float v = finite_or_zero(uv[i * s_un + s_uc]);
       val = bilin(img, s_r, H, W, u + (float)(g % s - half - border),
@@ -207,8 +215,9 @@ __device__ __forceinline__ float bilin_inside(const float* __restrict__ img,
 
 template <int HALF>
 __global__ void __launch_bounds__(32 * kScanWarps) epi_scan_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r64,
-    int L, int h_true, int w_true, const int* __restrict__ lvl,
+    const float* __restrict__ stack, long long s_b, long long s_l,
+    long long s_r64, int L, int h_true, int w_true, int n_per,
+    const int* __restrict__ lvl,
     const float* __restrict__ uv_a, long long s_an, long long s_ac,
     const float* __restrict__ uv_b, long long s_bn, long long s_bc,
     const int* __restrict__ n_steps,
@@ -230,7 +239,7 @@ __global__ void __launch_bounds__(32 * kScanWarps) epi_scan_kernel(
     return;
   }
   const int l = norm_level(lvl[i], L);
-  const float* img = stack + (long long)l * s_l;
+  const float* img = stack + (i / n_per) * s_b + (long long)l * s_l;
   const int s_r = (int)s_r64;
   const float wl = (float)(w_true >> l), hl = (float)(h_true >> l);
   const float m = (float)HALF + 2.0f;
@@ -428,8 +437,8 @@ __device__ __forceinline__ float win_read(const float* __restrict__ img,
 // The launch arguments of both ICLK kernels (the gates are off for
 // align_iclk_kernel).
 struct IclkArgs {
-  const float* stack; long long s_l, s_r; int L, H, W, h_true, w_true;
-  const int* lvl;
+  const float* stack; long long s_b, s_l, s_r; int L, H, W, h_true, w_true;
+  int n_per; const int* lvl;
   const float* T; long long s_tn, s_tr;
   const float* gx; long long s_xn, s_xr;
   const float* gy; long long s_yn, s_yr;
@@ -463,7 +472,8 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
   const int H = a.H, W = a.W;
   const long long s_r = a.s_r;
   const int l = min(max(a.lvl[i], 0), a.L - 1);
-  const float* __restrict__ img = a.stack + (long long)l * a.s_l;
+  const float* __restrict__ img =
+      a.stack + (i / a.n_per) * a.s_b + (long long)l * a.s_l;
   // the window kernel's origin (dump_windows: floor(uv) - (32, 16), clamped
   // so the crop fits the padded plane; then the slice start as
   // dynamic_slice clamps it); align_iclk_kernel samples plane coordinates
@@ -636,6 +646,7 @@ int iclk_launch_k(bool window, const IclkArgs& a, cudaStream_t st) {
 
 int iclk_launch(bool window, const IclkArgs& a, void* stream) {
   if (a.n <= 0) return 0;
+  if (a.n_per <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch ((4 * a.half * a.half + 31) / 32) {   // patch pixels per lane
     case 1: return iclk_launch_k<1>(window, a, st);
@@ -650,12 +661,13 @@ int iclk_launch(bool window, const IclkArgs& a, void* stream) {
 
 extern "C" {
 
-int launch_sample_patches(const float* stack, long long s_l, long long s_r,
-                          int L, int H, int W, const int* lvl, const float* uv,
-                          long long s_un, long long s_uc,
-                          const unsigned char* valid, int n, int half,
-                          int grad, float* out, void* stream) {
+int launch_sample_patches(const float* stack, long long s_b, long long s_l,
+                          long long s_r, int L, int H, int W, const int* lvl,
+                          const float* uv, long long s_un, long long s_uc,
+                          const unsigned char* valid, int n, int n_per,
+                          int half, int grad, float* out, void* stream) {
   if (n <= 0) return 0;
+  if (n_per <= 0) return (int)cudaErrorInvalidValue;
   const int area = 4 * half * half;
   const int tpb = area <= 64 ? 64 : 128;
   const int per_block = tpb > area ? tpb / area : 1;
@@ -663,24 +675,26 @@ int launch_sample_patches(const float* stack, long long s_l, long long s_r,
   const size_t smem = grad ? sizeof(float) * per_block * side * side : 0;
   sample_patches_kernel<<<blocks_for(n, per_block), tpb, smem,
                           (cudaStream_t)stream>>>(
-      stack, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, n, half, grad,
-      per_block, out);
+      stack, s_b, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, n, n_per,
+      half, grad, per_block, out);
   return (int)cudaGetLastError();
 }
 
-int launch_epi_scan(const float* stack, long long s_l, long long s_r, int L,
-                    int H, int W, int h_true, int w_true, const int* lvl,
+int launch_epi_scan(const float* stack, long long s_b, long long s_l,
+                    long long s_r, int L, int H, int W, int h_true,
+                    int w_true, int n_per, const int* lvl,
                     const float* uv_a, long long s_an, long long s_ac,
                     const float* uv_b, long long s_bn, long long s_bc,
                     const int* n_steps, const float* ref, long long s_rn,
                     long long s_rr, int n, int n_steps_max, int half,
                     float* out_t, float* out_s, void* stream) {
   if (n <= 0) return 0;
+  if (n_per <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   constexpr int tpb = 32 * kScanWarps;
 #define EPI_SCAN_ARGS                                                        \
-  stack, s_l, s_r, L, h_true, w_true, lvl, uv_a, s_an, s_ac, uv_b, s_bn,     \
-      s_bc, n_steps, ref, s_rn, s_rr, n_steps_max, out_t, out_s
+  stack, s_b, s_l, s_r, L, h_true, w_true, n_per, lvl, uv_a, s_an, s_ac,    \
+      uv_b, s_bn, s_bc, n_steps, ref, s_rn, s_rr, n_steps_max, out_t, out_s
   switch (half) {
     case 1: epi_scan_kernel<1><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
     case 2: epi_scan_kernel<2><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
@@ -693,8 +707,9 @@ int launch_epi_scan(const float* stack, long long s_l, long long s_r, int L,
   return (int)cudaGetLastError();
 }
 
-int launch_align_iclk(const float* stack, long long s_l, long long s_r, int L,
-                      int H, int W, int h_true, int w_true, const int* lvl,
+int launch_align_iclk(const float* stack, long long s_b, long long s_l,
+                      long long s_r, int L, int H, int W, int h_true,
+                      int w_true, int n_per, const int* lvl,
                       const float* T, long long s_tn, long long s_tr,
                       const float* gx, long long s_xn, long long s_xr,
                       const float* gy, long long s_yn, long long s_yr,
@@ -702,24 +717,27 @@ int launch_align_iclk(const float* stack, long long s_l, long long s_r, int L,
                       const unsigned char* valid, int n, int n_iter, int half,
                       float* out_uv, unsigned char* out_conv, float* out_mean,
                       void* stream) {
-  const IclkArgs a{stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, s_tn,
-                   s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr, uv0, s_un, s_uc,
+  const IclkArgs a{stack, s_b, s_l, s_r, L, H, W, h_true, w_true, n_per,
+                   lvl, T, s_tn, s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr,
+                   uv0, s_un, s_uc,
                    valid, n, n_iter, half, 0, 0.0f, 0, 0.0f, out_uv,
                    out_conv, out_mean};
   return iclk_launch(false, a, stream);
 }
 
 int launch_align_iclk_window(
-    const float* stack, long long s_l, long long s_r, int L, int H, int W,
-    int h_true, int w_true, const int* lvl, const float* T, long long s_tn,
+    const float* stack, long long s_b, long long s_l, long long s_r, int L,
+    int H, int W, int h_true, int w_true, int n_per, const int* lvl,
+    const float* T, long long s_tn,
     long long s_tr, const float* gx, long long s_xn, long long s_xr,
     const float* gy, long long s_yn, long long s_yr, const float* uv0,
     long long s_un, long long s_uc, const unsigned char* valid, int n,
     int n_iter, int half, int zmssd_on, float zmssd_max, int std_on,
     float std_min, float* out_uv, unsigned char* out_conv, float* out_mean,
     void* stream) {
-  const IclkArgs a{stack, s_l, s_r, L, H, W, h_true, w_true, lvl, T, s_tn,
-                   s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr, uv0, s_un, s_uc,
+  const IclkArgs a{stack, s_b, s_l, s_r, L, H, W, h_true, w_true, n_per,
+                   lvl, T, s_tn, s_tr, gx, s_xn, s_xr, gy, s_yn, s_yr,
+                   uv0, s_un, s_uc,
                    valid, n, n_iter, half, zmssd_on, zmssd_max, std_on,
                    std_min, out_uv, out_conv, out_mean};
   return iclk_launch(true, a, stream);

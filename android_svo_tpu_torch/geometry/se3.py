@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils._pytree as _pytree
 
 _EPS2 = 1e-8  # squared-angle threshold below which Taylor branches engage
 
@@ -189,4 +190,10 @@ class SE3:
 
     def normalize(self) -> "SE3":
         return SE3(q=quat_normalize(self.q), t=self.t)
+
+
+# a pytree node, so poses pass through torch.func.vmap as (q, t)
+_pytree.register_pytree_node(
+    SE3, lambda T: ([T.q, T.t], None),
+    lambda children, _: SE3(q=children[0], t=children[1]))
 

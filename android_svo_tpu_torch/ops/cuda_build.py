@@ -40,18 +40,18 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "launch_sample_patches": [_P, _LL, _LL, _I, _I, _I, _P, _P, _LL, _LL,
-                              _P, _I, _I, _I, _P, _P],
-    "launch_epi_scan": [_P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _LL, _LL,
-                        _P, _LL, _LL, _P, _P, _LL, _LL, _I, _I, _I, _P, _P,
-                        _P],
-    "launch_align_iclk": [_P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _LL, _LL,
-                          _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _I,
-                          _I, _I, _P, _P, _P, _P],
-    "launch_align_iclk_window": [_P, _LL, _LL, _I, _I, _I, _I, _I, _P,
-                                 _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                                 _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _I,
-                                 _F, _P, _P, _P, _P],
+    "launch_sample_patches": [_P, _LL, _LL, _LL, _I, _I, _I, _P, _P, _LL,
+                              _LL, _P, _I, _I, _I, _I, _P, _P],
+    "launch_epi_scan": [_P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _LL, _LL, _P, _LL, _LL, _P, _P, _LL, _LL, _I, _I, _I,
+                        _P, _P, _P],
+    "launch_align_iclk": [_P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                          _P, _I, _I, _I, _P, _P, _P, _P],
+    "launch_align_iclk_window": [_P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL,
+                                 _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _F,
+                                 _I, _F, _P, _P, _P, _P],
     "launch_probe_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
 

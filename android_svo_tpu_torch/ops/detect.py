@@ -20,7 +20,11 @@ FTYPE_EDGELET = 1
 
 
 def _box_sum(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Separable box filter via cumulative sums (same-size, zero pad)."""
+    """Separable box filter (same-size, zero pad): output i sums inputs
+    i - size/2 .. i + size/2 - 1 along each axis, the JAX package's window
+    (its cumulative-sum differences).  Summed as `size` shifted slices in a
+    fixed order: on CUDA a cumulative sum rounds differently with a leading
+    batch (`torch.func.vmap`), slices do not."""
     half = size // 2
     for dim in (-2, -1):
         n = x.shape[dim]
@@ -30,10 +34,11 @@ def _box_sum(x: torch.Tensor, size: int) -> torch.Tensor:
             pad[0], pad[1] = half + 1, half
         else:
             pad[2], pad[3] = half + 1, half
-        c = torch.cumsum(F.pad(x, pad), dim=dim)
-        hi = c.narrow(dim, size, n)
-        lo = c.narrow(dim, 0, n)
-        x = hi - lo
+        xp = F.pad(x, pad)
+        acc = xp.narrow(dim, 1, n)
+        for j in range(2, size + 1):
+            acc = acc + xp.narrow(dim, j, n)
+        x = acc
     return x
 
 
@@ -209,7 +214,8 @@ def detect_features(pyr, occupied_cells, cfg: SVOConfig, n_levels=None):
         corner = (ftype == FTYPE_CORNER).to(torch.int32)
         order = _lexsort((-score, -corner, (~valid).to(torch.int32)))
         keep = torch.zeros((n_cells,), dtype=torch.bool, device=dev)
-        keep[order[:cfg.max_fts]] = True
+        keep = keep.index_put((order[:cfg.max_fts],),
+                              torch.ones((), dtype=torch.bool, device=dev))
         valid = valid & keep
     return {"px": xy, "level": lvl, "score": score, "valid": valid,
             "ftype": ftype, "grad": grad}

@@ -28,6 +28,18 @@ Layout contract as in the JAX package: the stack is `(L, Hp, Wp)` with level
 l in the top-left `(h>>l, w>>l)` corner; uv are level-pixel coordinates; the
 plain versions compute every slot, the kernels write zeros (or the initial
 position) for dead ones, so compare valid slots only.
+
+Batches: each wrapper is a `torch.library.custom_op` (namespace `svo_torch`)
+with a `register_vmap` rule, the counterpart of the Pallas batching rule
+that gives a `pallas_call` under `jax.vmap` a batch grid axis.  Under
+`torch.func.vmap` the rule calls the `*_batched` form: a `(B, L, Hp, Wp)`
+stack (an unbatched stack is read with batch stride 0) and `(B, N, ...)`
+features, flattened to B*N rows for one allocation per output and ONE
+launch for the whole batch (`LAUNCHES` adds one per batched call); on the
+CPU the batched plain version runs the per-frame plain version on the B*L
+planes, each feature reading plane b*L + level.  Outside a `torch.func`
+transform a wrapper calls its op's body directly (`_call`): the single path
+pays no dispatcher cost, and its ATen ops are those of the body.
 """
 
 from __future__ import annotations
@@ -61,19 +73,56 @@ def _on_card(t: torch.Tensor, use_pallas) -> bool:
     return bool(use_pallas) and t.is_cuda
 
 
+def _call(op, body, *args):
+    """A wrapper's custom op inside a `torch.func` transform, where the
+    op's vmap rule batches the call; outside one, the op's body itself,
+    which spares the single path the dispatcher's per-call cost."""
+    if torch._C._functorch.maybe_current_level() is None:
+        return body(*args)
+    return op(*args)
+
+
+def _planes(stack: torch.Tensor, lvl: torch.Tensor, wrap: bool):
+    """A (B, L, Hp, Wp) stack as B*L planes, and the plane each of the
+    (B, N) features reads: b*L + its level, normalised as the per-frame
+    plain version normalises it (the sampler and the scan count a negative
+    level from the end, `wrap`; the ICLKs clamp it), so every feature reads
+    what it reads in its own frame."""
+    B, L = stack.shape[:2]
+    lv = lvl.to(torch.int64)
+    if wrap:
+        lv = torch.where(lv < 0, lv + L, lv)
+    lv = lv.clamp(0, L - 1)
+    base = torch.arange(B, device=lvl.device)[:, None] * L
+    return stack.reshape((B * L,) + stack.shape[2:]), (base + lv).reshape(-1)
+
+
+def _rows(x, d, B: int):
+    """A vmap rule's argument with its batch dimension first (an unbatched
+    one expanded to the batch, which costs no copy)."""
+    if x is None:
+        return None
+    if d is None:
+        return x.expand((B,) + tuple(x.shape))
+    return x.movedim(d, 0)
+
+
 # ---------------------------------------------------------------------------
 # argument packing (the shared checks and launch: `ops/cuda_build.py`)
 # ---------------------------------------------------------------------------
 
 def _stack_args(stack: torch.Tensor):
-    if stack.dtype is not torch.float32 or stack.dim() != 3:
-        raise ValueError(f"stack must be (L, H, W) float32, got "
-                         f"{tuple(stack.shape)} {stack.dtype}")
+    """(pointer, s_b, s_l, s_r, L, H, W) of an (L, H, W) stack (s_b = 0) or
+    a (B, L, H, W) batch of stacks, any strides with contiguous rows."""
+    if stack.dtype is not torch.float32 or stack.dim() not in (3, 4):
+        raise ValueError(f"stack must be (L, H, W) or (B, L, H, W) float32, "
+                         f"got {tuple(stack.shape)} {stack.dtype}")
     s = stack.stride()
-    if s[2] != 1:
-        raise ValueError("stack rows must be contiguous (stride(2) == 1)")
-    L, H, W = stack.shape
-    return (stack.data_ptr(), s[0], s[1], L, H, W)
+    if s[-1] != 1:
+        raise ValueError("stack rows must be contiguous (stride(-1) == 1)")
+    L, H, W = stack.shape[-3:]
+    s_b = s[0] if stack.dim() == 4 else 0
+    return (stack.data_ptr(), s_b, s[-3], s[-2], L, H, W)
 
 
 def _patch_args(t, name: str, n: int, p: int, device: int):
@@ -113,10 +162,24 @@ def _sample_plain(stack, lvl, uv, half: int, grad: bool):
     return (val.reshape(n, p, p), dx.reshape(n, p, p), dy.reshape(n, p, p))
 
 
-def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
+def _sample_plain_batched(stack, lvl, uv, half: int, grad: bool):
+    """Batched plain version: stack (B, L, Hp, Wp), lvl (B, N), uv
+    (B, N, 2); `_sample_plain` on the B*L planes."""
+    B, N = lvl.shape
+    planes, plane = _planes(stack, lvl, wrap=True)
+    out = _sample_plain(planes, plane, uv.reshape(B * N, 2), half, grad)
+    if not grad:
+        return out.reshape(B, N, 2 * half, 2 * half)
+    return tuple(o.reshape(B, N, 2 * half, 2 * half) for o in out)
+
+
+def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid,
+                   n_per: int | None = None):
     """One allocation and one launch: the kernel zeroes non-finite uv, reads
     uv through its strides and takes a null `valid` as all live, so nothing
-    is converted here; inputs of another type or device raise."""
+    is converted here; inputs of another type or device raise.  A
+    (B, L, Hp, Wp) stack takes B * n_per rows, row i reading frame
+    i // n_per."""
     n = uv.shape[0]
     p = 2 * half
     dev = stack.get_device()
@@ -134,9 +197,53 @@ def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
         su = uv.stride()
         launch(LAUNCHES, "sample_patches_kernel", "launch_sample_patches",
                *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[0],
-               su[1], None if valid is None else valid.data_ptr(), n, half,
-               int(grad), out.data_ptr(), stream(dev))
-    return out.unbind(0) if grad else out
+               su[1], None if valid is None else valid.data_ptr(), n,
+               n if n_per is None else n_per, half, int(grad),
+               out.data_ptr(), stream(dev))
+    return out
+
+
+def _sample_body(stack, lvl, uv, half, grad, valid, use_pallas):
+    if _on_card(stack, use_pallas):
+        return _sample_kernel(stack, lvl, uv, half, grad, valid)
+    out = _sample_plain(stack, lvl, uv, half, grad)
+    return torch.stack(out) if grad else out
+
+
+_sample_op = torch.library.custom_op(
+    "svo_torch::sample_patches", _sample_body, mutates_args=(),
+    schema="(Tensor stack, Tensor lvl, Tensor uv, int half, bool grad, "
+           "Tensor? valid, bool use_pallas) -> Tensor")
+
+
+def sample_patches_batched(stack, lvl, uv, half: int, grad: bool = False,
+                           valid=None, use_pallas=True):
+    """sample_patches for a batch: stack (B, L, Hp, Wp), lvl (B, N), uv
+    (B, N, 2), valid (B, N) or None.  Returns (B, N, P, P), or the
+    (patch, dx, dy) triple.  On CUDA one launch for all B*N features."""
+    B, N = lvl.shape
+    if _on_card(stack, use_pallas):
+        out = _sample_kernel(
+            stack, lvl.reshape(B * N), uv.reshape(B * N, 2), half, grad,
+            None if valid is None else valid.reshape(B * N), n_per=N)
+        p = 2 * half
+        if grad:
+            return out.view(3, B, N, p, p).unbind(0)
+        return out.view(B, N, p, p)
+    return _sample_plain_batched(stack, lvl, uv, half, grad)
+
+
+@_sample_op.register_vmap
+def _sample_vmap(info, in_dims, stack, lvl, uv, half, grad, valid,
+                 use_pallas):
+    B = info.batch_size
+    d_stack, d_lvl, d_uv, _, _, d_valid, _ = in_dims
+    out = sample_patches_batched(
+        _rows(stack, d_stack, B), _rows(lvl, d_lvl, B), _rows(uv, d_uv, B),
+        half, grad, _rows(valid, d_valid, B), use_pallas)
+    if grad:
+        return torch.stack(out), 1
+    return out, 0
 
 
 def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
@@ -151,11 +258,12 @@ def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
     makes one allocation and one launch.  The kernel runs at the launch
     floor (1.8 us at the sparse-align call's shapes on an NVIDIA H100 80GB
     HBM3 at 700 W, against a bound of 0.04 us), so a call costs what the
-    host spends on it: the checks, the allocation and the ctypes call.  On the CPU the plain version
-    computes every slot from uv as given."""
-    if _on_card(stack, use_pallas):
-        return _sample_kernel(stack, lvl, uv, half, grad, valid)
-    return _sample_plain(stack, lvl, uv, half, grad)
+    host spends on it: the checks, the allocation and the ctypes call.  On
+    the CPU the plain version computes every slot from uv as given.  Under
+    `torch.func.vmap` the batch takes one launch (`sample_patches_batched`)."""
+    out = _call(_sample_op, _sample_body, stack, lvl, uv, half, grad, valid,
+                bool(use_pallas))
+    return out.unbind(0) if grad else out
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +271,12 @@ def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
 # ---------------------------------------------------------------------------
 
 def _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
-                n_steps_max: int, half: int, h: int, w: int):
-    """Plain version of epi_scan_kernel (port of _scan_fallback)."""
+                n_steps_max: int, half: int, h: int, w: int, plane=None,
+                L: int | None = None):
+    """Plain version of epi_scan_kernel (port of _scan_fallback).  `plane`
+    (default: `lvl`) is the stack plane each seed samples and `L` (default:
+    the stack's depth) the level count its level is normalised with: the
+    batched version passes the B*L planes and the per-frame L."""
     p = 2 * half
     n = lvl.shape[0]
     dtype = uv_a.dtype
@@ -179,14 +291,15 @@ def _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
     offs = interp.patch_offsets(half, dtype, dev)
     coords = uvk[:, :, None, :] + offs[None, None, :, :]
     lvl = lvl.to(torch.int64)
+    plane = lvl if plane is None else plane
     cur = interp.bilinear_sample_stack(
-        stack, lvl[:, None].expand(n, n_steps_max).reshape(-1),
+        stack, plane[:, None].expand(n, n_steps_max).reshape(-1),
         coords.reshape(n * n_steps_max, -1, 2)).reshape(n, n_steps_max,
                                                         p * p)
     cur = cur - cur.mean(dim=-1, keepdim=True)
     d = cur - ref_patch_zm.reshape(n, 1, p * p)
     score = torch.sum(d * d, dim=-1)
-    L = stack.shape[0]
+    L = stack.shape[0] if L is None else L
     lvl_n = torch.where(lvl < 0, lvl + L, lvl).clamp(0, L - 1)
     wl = (w >> lvl_n).to(dtype)[:, None]
     hl = (h >> lvl_n).to(dtype)[:, None]
@@ -202,11 +315,13 @@ def _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch_zm,
 
 
 def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
-                 n_steps_max: int, half: int, h: int, w: int):
+                 n_steps_max: int, half: int, h: int, w: int,
+                 n_per: int | None = None):
     """The whole of epi_scan in one launch (the kernel centres the
     reference, zeroes non-finite segment ends and reads uv and the reference
     through their strides; a None `n_steps_each` is a null pointer); the
-    host allocates the two outputs and converts nothing."""
+    host allocates the two outputs and converts nothing.  A (B, L, Hp, Wp)
+    stack takes B * n_per seeds, seed i reading frame i // n_per."""
     dev = stack.get_device()
     n = lvl.shape[0]
     p = 2 * half
@@ -214,10 +329,10 @@ def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
         raise ValueError(f"epi_scan_kernel takes patches of 1 to 128 px, got "
                          f"half={half}")
     stack_args = _stack_args(stack)
-    if h > stack_args[4] or w > stack_args[5]:
+    if h > stack_args[5] or w > stack_args[6]:
         # the kernel reads in-bounds taps without clamps
         raise ValueError(f"image dims {h}x{w} exceed the stack's "
-                         f"{stack_args[4]}x{stack_args[5]}")
+                         f"{stack_args[5]}x{stack_args[6]}")
     ref = _patch_args(ref_patch, "ref_patch", n, p, dev)
     check(uv_a, "uv_a", torch.float32, (n, 2), dev)
     check(uv_b, "uv_b", torch.float32, (n, 2), dev)
@@ -231,12 +346,81 @@ def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
     if n:
         sa, sb = uv_a.stride(), uv_b.stride()
         launch(LAUNCHES, "epi_scan_kernel", "launch_epi_scan", *stack_args,
-               int(h), int(w), lvl.data_ptr(), uv_a.data_ptr(), sa[0], sa[1],
+               int(h), int(w), n if n_per is None else n_per,
+               lvl.data_ptr(), uv_a.data_ptr(), sa[0], sa[1],
                uv_b.data_ptr(), sb[0], sb[1],
                None if n_steps_each is None else n_steps_each.data_ptr(),
                *ref, n, int(n_steps_max), half,
                best_t.data_ptr(), best_s.data_ptr(), stream(dev))
     return best_t, best_s
+
+
+def _epi_scan_plain(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
+                    half: int, n_steps_each, h: int, w: int, plane=None,
+                    L: int | None = None):
+    """The whole of epi_scan's plain version: the centred reference, the
+    default step count, `_scan_plain`."""
+    if n_steps_each is None:
+        n_steps_each = torch.full(lvl.shape, n_steps_max, dtype=torch.int32,
+                                  device=lvl.device)
+    rp = ref_patch.reshape(ref_patch.shape[0], -1)
+    rp = (rp - rp.mean(dim=-1, keepdim=True)).reshape(ref_patch.shape)
+    return _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, rp, n_steps_max,
+                       half, h, w, plane=plane, L=L)
+
+
+def _scan_body(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max, half,
+               n_steps_each, h, w, use_pallas):
+    if _on_card(stack, use_pallas):
+        return _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
+                            n_steps_max, half, h, w)
+    return _epi_scan_plain(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max,
+                           half, n_steps_each, h, w)
+
+
+_scan_op = torch.library.custom_op(
+    "svo_torch::epi_scan", _scan_body, mutates_args=(),
+    schema="(Tensor stack, Tensor lvl, Tensor uv_a, Tensor uv_b, "
+           "Tensor ref_patch, int n_steps_max, int half, "
+           "Tensor? n_steps_each, int h, int w, bool use_pallas) "
+           "-> (Tensor, Tensor)")
+
+
+def epi_scan_batched(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
+                     half: int = 4, n_steps_each=None, h: int | None = None,
+                     w: int | None = None, use_pallas=True):
+    """epi_scan for a batch: stack (B, L, Hp, Wp), lvl / n_steps_each
+    (B, N), uv_a / uv_b (B, N, 2), ref_patch (B, N, P, P).  Returns
+    (t_best, score), each (B, N).  On CUDA one launch for all B*N seeds."""
+    B, N = lvl.shape
+    L, hp, wp = stack.shape[-3:]
+    h = hp if h is None else h
+    w = wp if w is None else w
+    p = ref_patch.shape[-1]
+    flat = (lvl.reshape(B * N), uv_a.reshape(B * N, 2),
+            uv_b.reshape(B * N, 2), ref_patch.reshape(B * N, p, p),
+            None if n_steps_each is None else n_steps_each.reshape(B * N))
+    if _on_card(stack, use_pallas):
+        t, sc = _scan_kernel(stack, flat[0], flat[1], flat[2], flat[4],
+                             flat[3], n_steps_max, half, h, w, n_per=N)
+    else:
+        planes, plane = _planes(stack, lvl, wrap=True)
+        t, sc = _epi_scan_plain(planes, flat[0], flat[1], flat[2], flat[3],
+                                n_steps_max, half, flat[4], h, w,
+                                plane=plane, L=L)
+    return t.view(B, N), sc.view(B, N)
+
+
+@_scan_op.register_vmap
+def _scan_vmap(info, in_dims, stack, lvl, uv_a, uv_b, ref_patch, n_steps_max,
+               half, n_steps_each, h, w, use_pallas):
+    B = info.batch_size
+    d = in_dims
+    out = epi_scan_batched(
+        _rows(stack, d[0], B), _rows(lvl, d[1], B), _rows(uv_a, d[2], B),
+        _rows(uv_b, d[3], B), _rows(ref_patch, d[4], B), n_steps_max, half,
+        _rows(n_steps_each, d[7], B), h, w, use_pallas)
+    return out, (0, 0)
 
 
 def epi_scan(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
@@ -253,20 +437,14 @@ def epi_scan(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
     allocates the two outputs and raises on inputs that are not float32 uv
     and reference patches (any strides; the patches' rows contiguous) and
     int32 `lvl` / `n_steps_each` on the stack's device.  On the CPU the
-    plain version runs on the centred reference."""
+    plain version runs on the centred reference.  Under `torch.func.vmap`
+    the batch takes one launch (`epi_scan_batched`)."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    if _on_card(stack, use_pallas):
-        return _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
-                            n_steps_max, half, h, w)
-    if n_steps_each is None:
-        n_steps_each = torch.full(lvl.shape, n_steps_max, dtype=torch.int32,
-                                  device=lvl.device)
-    rp = ref_patch.reshape(ref_patch.shape[0], -1)
-    rp = (rp - rp.mean(dim=-1, keepdim=True)).reshape(ref_patch.shape)
-    return _scan_plain(stack, lvl, uv_a, uv_b, n_steps_each, rp, n_steps_max,
-                       half, h, w)
+    return _call(_scan_op, _scan_body, stack, lvl, uv_a, uv_b, ref_patch,
+                 int(n_steps_max), int(half), n_steps_each, int(h), int(w),
+                 bool(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +467,12 @@ def _level_dims(lvl_c, h: int, w: int, dtype):
 
 
 def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
-                 half: int, h: int, w: int, updates: list | None = None):
+                 half: int, h: int, w: int, updates: list | None = None,
+                 plane=None, L: int | None = None):
     """Plain version of align_iclk_kernel (port of _align_fallback).  A
     fixed-count loop: each feature freezes once done, which is what the JAX
-    while-loop computes without its early global exit."""
+    while-loop computes without its early global exit.  `plane` and `L` as
+    in `_scan_plain`."""
     n = lvl.shape[0]
     p = 2 * half
     area = p * p
@@ -301,7 +481,9 @@ def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
     J = torch.stack([gx.reshape(n, area), gy.reshape(n, area),
                      torch.ones((n, area), dtype=dtype, device=uv0.device)],
                     dim=-1)
-    lvl = torch.clamp(lvl.to(torch.int64), 0, stack.shape[0] - 1)
+    L = stack.shape[0] if L is None else L
+    lvl = torch.clamp(lvl.to(torch.int64), 0, L - 1)
+    plane = lvl if plane is None else plane
     wl, hl = _level_dims(lvl, h, w, dtype)
     m = half + 1.0
 
@@ -310,7 +492,7 @@ def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
                 & (uv[..., 1] >= m) & (uv[..., 1] < hl - 1 - m))
 
     def step(uv, mean):
-        cur = _sample_plain(stack, lvl, uv, half, False).reshape(n, area)
+        cur = _sample_plain(stack, plane, uv, half, False).reshape(n, area)
         r = cur - Tf + mean[:, None]
         g = torch.einsum("nai,na->ni", J, r)
         return torch.einsum("nij,nj->ni", hinv, g)
@@ -335,10 +517,13 @@ def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
 
 
 def _iclk_launch(name: str, fn_name: str, stack, lvl, T, gx, gy, uv0, valid,
-                 n_iter: int, h: int, w: int, gates: tuple = ()):
+                 n_iter: int, h: int, w: int, gates: tuple = (),
+                 n_per: int | None = None):
     """Checks, the three output allocations and the one launch of an ICLK
     kernel (`gates`: the window kernel's gate flags and levels); inputs of
-    another type, shape, layout or device raise before any allocation."""
+    another type, shape, layout or device raise before any allocation.  A
+    (B, L, Hp, Wp) stack takes B * n_per features, feature i reading frame
+    i // n_per."""
     dev = stack.get_device()
     n, p = T.shape[0], T.shape[-1]
     if p % 2 or not 0 < p * p <= 128:
@@ -360,19 +545,96 @@ def _iclk_launch(name: str, fn_name: str, stack, lvl, T, gx, gy, uv0, valid,
     if n:
         su = uv0.stride()
         launch(LAUNCHES, name, fn_name, *stack_args, int(h), int(w),
-               lvl.data_ptr(), *args, uv0.data_ptr(), su[0], su[1],
-               valid.data_ptr(), n, int(n_iter), p // 2, *gates,
+               n if n_per is None else n_per, lvl.data_ptr(), *args,
+               uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n, int(n_iter), p // 2, *gates,
                out_uv.data_ptr(), out_conv.data_ptr(), out_mean.data_ptr(),
                stream(dev))
     return out_uv, out_conv, out_mean
 
 
 def _align_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int, h: int,
-                  w: int):
+                  w: int, n_per: int | None = None):
     """The whole of align_iclk in one launch (Hessian and inverse,
     NaN-zeroing, ICLK and convergence in the kernel)."""
     return _iclk_launch("align_iclk_kernel", "launch_align_iclk", stack, lvl,
-                        T, gx, gy, uv0, valid, n_iter, h, w)
+                        T, gx, gy, uv0, valid, n_iter, h, w, n_per=n_per)
+
+
+def _align_iclk_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
+                      n_iter: int, h: int, w: int, plane=None,
+                      L: int | None = None):
+    """The whole of align_iclk's plain version: the Hessian's inverse, the
+    loop and the convergence test."""
+    p = ref_patch.shape[1]
+    hinv = _iclk_hinv(ref_dx, ref_dy)
+    uv, mean, step2 = _align_plain(stack, lvl, ref_patch, ref_dx, ref_dy,
+                                   hinv, init_uv, valid, n_iter, p // 2, h, w,
+                                   plane=plane, L=L)
+    drift = torch.linalg.norm(uv - init_uv, dim=-1)
+    converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
+    # with no iteration uv is init_uv itself; an op returns no input
+    return (uv.clone() if uv is init_uv else uv), converged, mean
+
+
+def _flat_features(B: int, N: int, ref_patch, ref_dx, ref_dy, init_uv,
+                   valid):
+    p = ref_patch.shape[-1]
+    return (ref_patch.reshape(B * N, p, p), ref_dx.reshape(B * N, p, p),
+            ref_dy.reshape(B * N, p, p), init_uv.reshape(B * N, 2),
+            valid.reshape(B * N))
+
+
+def _align_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
+                n_iter, h, w, use_pallas):
+    if _on_card(stack, use_pallas):
+        return _align_kernel(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
+                             valid, n_iter, h, w)
+    return _align_iclk_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
+                             valid, n_iter, h, w)
+
+
+_align_op = torch.library.custom_op(
+    "svo_torch::align_iclk", _align_body, mutates_args=(),
+    schema="(Tensor stack, Tensor lvl, Tensor ref_patch, Tensor ref_dx, "
+           "Tensor ref_dy, Tensor init_uv, Tensor valid, int n_iter, int h, "
+           "int w, bool use_pallas) -> (Tensor, Tensor, Tensor)")
+
+
+def align_iclk_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
+                       n_iter: int, h: int | None = None,
+                       w: int | None = None, use_pallas=True):
+    """align_iclk for a batch: stack (B, L, Hp, Wp), lvl / valid (B, N),
+    patches (B, N, P, P), init_uv (B, N, 2).  Returns (uv, converged,
+    mean_diff) with a leading (B, N).  On CUDA one launch for all B*N
+    features."""
+    B, N = lvl.shape
+    L, hp, wp = stack.shape[-3:]
+    h = hp if h is None else h
+    w = wp if w is None else w
+    T, gx, gy, uv0, ok = _flat_features(B, N, ref_patch, ref_dx, ref_dy,
+                                        init_uv, valid)
+    if _on_card(stack, use_pallas):
+        out = _align_kernel(stack, lvl.reshape(B * N), T, gx, gy, uv0, ok,
+                            n_iter, h, w, n_per=N)
+    else:
+        planes, plane = _planes(stack, lvl, wrap=False)
+        out = _align_iclk_plain(planes, lvl.reshape(B * N), T, gx, gy, uv0,
+                                ok, n_iter, h, w, plane=plane, L=L)
+    uv, conv, mean = out
+    return uv.view(B, N, 2), conv.view(B, N), mean.view(B, N)
+
+
+@_align_op.register_vmap
+def _align_vmap(info, in_dims, stack, lvl, ref_patch, ref_dx, ref_dy,
+                init_uv, valid, n_iter, h, w, use_pallas):
+    B = info.batch_size
+    d = in_dims
+    out = align_iclk_batched(
+        _rows(stack, d[0], B), _rows(lvl, d[1], B),
+        _rows(ref_patch, d[2], B), _rows(ref_dx, d[3], B),
+        _rows(ref_dy, d[4], B), _rows(init_uv, d[5], B),
+        _rows(valid, d[6], B), n_iter, h, w, use_pallas)
+    return out, (0, 0, 0)
 
 
 def align_iclk(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
@@ -388,20 +650,14 @@ def align_iclk(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     patches (any strides with contiguous rows) and uv, int32 `lvl` and bool
     `valid` on the stack's device.  The kernel starts from `init_uv` with
     NaN and +-inf read as 0 and returns that start for dead slots.  On the
-    CPU the plain version runs from `init_uv` as given."""
+    CPU the plain version runs from `init_uv` as given.  Under
+    `torch.func.vmap` the batch takes one launch (`align_iclk_batched`)."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    if _on_card(stack, use_pallas):
-        return _align_kernel(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
-                             valid, n_iter, h, w)
-    p = ref_patch.shape[1]
-    hinv = _iclk_hinv(ref_dx, ref_dy)
-    uv, mean, step2 = _align_plain(stack, lvl, ref_patch, ref_dx, ref_dy,
-                                   hinv, init_uv, valid, n_iter, p // 2, h, w)
-    drift = torch.linalg.norm(uv - init_uv, dim=-1)
-    converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
-    return uv, converged, mean
+    return _call(_align_op, _align_body, stack, lvl, ref_patch, ref_dx,
+                 ref_dy, init_uv, valid, int(n_iter), int(h), int(w),
+                 bool(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -417,15 +673,17 @@ def _window_origin(stack, uv):
     return torch.stack([xi, yi], dim=-1)
 
 
-def dump_windows_plain(stack, lvl, uv, valid=None):
+def dump_windows_plain(stack, lvl, uv, valid=None, plane=None):
     """One (DUMP_WR, DUMP_WC) window per feature around integer(uv), plus the
     window origin (xi, yi) — port of dump_windows' fallback path.  The
     window kernel reads this window's pixels in place, through the window's
-    own index clamps, instead of writing it out."""
+    own index clamps, instead of writing it out.  `plane` (default: the
+    clamped level) is the stack plane each window is cut from."""
     L, hp, wp = stack.shape
     uv = _nan0(uv)
     org = _window_origin(stack, uv)
-    lvl_c = torch.clamp(lvl.to(torch.int64), 0, L - 1)
+    lvl_c = (torch.clamp(lvl.to(torch.int64), 0, L - 1) if plane is None
+             else plane)
     # dynamic_slice semantics: the start is clamped so the window fits
     sx = org[:, 0].to(torch.int64).clamp(0, max(wp - DUMP_WC, 0))
     sy = org[:, 1].to(torch.int64).clamp(0, max(hp - DUMP_WR, 0))
@@ -465,18 +723,20 @@ def _onehot_patch(wins, u, v, p: int):
 
 
 def _align_mxu_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
-                     half: int, h: int, w: int, updates: list | None = None):
+                     half: int, h: int, w: int, updates: list | None = None,
+                     plane=None, L: int | None = None):
     """Plain version of align_iclk_window_kernel: dump_windows_plain plus
     the one-hot ICLK of align_iclk_mxu (fixed-count loop with per-feature
     freeze).  Returns (uv, mean, step2, zmssd score, population std) of the
-    final resample."""
+    final resample.  `plane` and `L` as in `_scan_plain`."""
     n = lvl.shape[0]
     p = 2 * half
     area = p * p
     dtype = T.dtype
-    wins, org = dump_windows_plain(stack, lvl, uv0, valid)
+    wins, org = dump_windows_plain(stack, lvl, uv0, valid, plane=plane)
     orgf = org.to(dtype)
-    lvl_c = torch.clamp(lvl.to(torch.int64), 0, stack.shape[0] - 1)
+    L = stack.shape[0] if L is None else L
+    lvl_c = torch.clamp(lvl.to(torch.int64), 0, L - 1)
     wl, hl = _level_dims(lvl_c, h, w, dtype)
     m = half + 1.0
     wb = half + 2.0
@@ -524,7 +784,8 @@ def _align_mxu_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
 
 
 def _align_window_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int,
-                         h: int, w: int, zmssd_factor, min_patch_std):
+                         h: int, w: int, zmssd_factor, min_patch_std,
+                         n_per: int | None = None):
     """The whole of align_iclk_mxu in one launch (Hessian and inverse,
     NaN-zeroing, window origin, ICLK, convergence and gates in the kernel)."""
     p = T.shape[-1]
@@ -533,7 +794,89 @@ def _align_window_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int,
     gates = (int(zmssd_on), float(zmssd_factor) * p * p if zmssd_on else 0.0,
              int(std_on), float(min_patch_std) if std_on else 0.0)
     return _iclk_launch("align_iclk_window_kernel", "launch_align_iclk_window",
-                        stack, lvl, T, gx, gy, uv0, valid, n_iter, h, w, gates)
+                        stack, lvl, T, gx, gy, uv0, valid, n_iter, h, w, gates,
+                        n_per=n_per)
+
+
+def _align_iclk_mxu_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
+                          valid, n_iter: int, h: int, w: int, zmssd_factor,
+                          min_patch_std, plane=None, L: int | None = None):
+    """The whole of align_iclk_mxu's plain version: the Hessian's inverse,
+    the window loop, the convergence test and the gates."""
+    n, p, _ = ref_patch.shape
+    area = p * p
+    hinv = _iclk_hinv(ref_dx, ref_dy)
+    init_uv = _nan0(init_uv)
+    uv, mean, step2, score, std = _align_mxu_plain(
+        stack, lvl, ref_patch, ref_dx, ref_dy, hinv, init_uv, valid, n_iter,
+        p // 2, h, w, plane=plane, L=L)
+    drift = torch.linalg.norm(uv - init_uv, dim=-1)
+    converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
+    if zmssd_factor is not None:
+        converged = converged & (score < zmssd_factor * area)
+    if min_patch_std is not None:
+        converged = converged & (std >= min_patch_std)
+    return uv, converged, mean
+
+
+def _align_mxu_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
+                    n_iter, h, w, use_pallas, zmssd_factor, min_patch_std):
+    if _on_card(stack, use_pallas):
+        return _align_window_kernel(stack, lvl, ref_patch, ref_dx, ref_dy,
+                                    init_uv, valid, n_iter, h, w,
+                                    zmssd_factor, min_patch_std)
+    return _align_iclk_mxu_plain(stack, lvl, ref_patch, ref_dx, ref_dy,
+                                 init_uv, valid, n_iter, h, w, zmssd_factor,
+                                 min_patch_std)
+
+
+_align_mxu_op = torch.library.custom_op(
+    "svo_torch::align_iclk_mxu", _align_mxu_body, mutates_args=(),
+    schema="(Tensor stack, Tensor lvl, Tensor ref_patch, Tensor ref_dx, "
+           "Tensor ref_dy, Tensor init_uv, Tensor valid, int n_iter, int h, "
+           "int w, bool use_pallas, float? zmssd_factor, "
+           "float? min_patch_std) -> (Tensor, Tensor, Tensor)")
+
+
+def align_iclk_mxu_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
+                           valid, n_iter: int, h: int | None = None,
+                           w: int | None = None, use_pallas=True,
+                           zmssd_factor: float | None = None,
+                           min_patch_std: float | None = None):
+    """align_iclk_mxu for a batch, with the shapes of align_iclk_batched.
+    On CUDA one launch for all B*N features."""
+    B, N = lvl.shape
+    L, hp, wp = stack.shape[-3:]
+    h = hp if h is None else h
+    w = wp if w is None else w
+    T, gx, gy, uv0, ok = _flat_features(B, N, ref_patch, ref_dx, ref_dy,
+                                        init_uv, valid)
+    if _on_card(stack, use_pallas):
+        out = _align_window_kernel(stack, lvl.reshape(B * N), T, gx, gy, uv0,
+                                   ok, n_iter, h, w, zmssd_factor,
+                                   min_patch_std, n_per=N)
+    else:
+        planes, plane = _planes(stack, lvl, wrap=False)
+        out = _align_iclk_mxu_plain(planes, lvl.reshape(B * N), T, gx, gy,
+                                    uv0, ok, n_iter, h, w, zmssd_factor,
+                                    min_patch_std, plane=plane, L=L)
+    uv, conv, mean = out
+    return uv.view(B, N, 2), conv.view(B, N), mean.view(B, N)
+
+
+@_align_mxu_op.register_vmap
+def _align_mxu_vmap(info, in_dims, stack, lvl, ref_patch, ref_dx, ref_dy,
+                    init_uv, valid, n_iter, h, w, use_pallas, zmssd_factor,
+                    min_patch_std):
+    B = info.batch_size
+    d = in_dims
+    out = align_iclk_mxu_batched(
+        _rows(stack, d[0], B), _rows(lvl, d[1], B),
+        _rows(ref_patch, d[2], B), _rows(ref_dx, d[3], B),
+        _rows(ref_dy, d[4], B), _rows(init_uv, d[5], B),
+        _rows(valid, d[6], B), n_iter, h, w, use_pallas, zmssd_factor,
+        min_patch_std)
+    return out, (0, 0, 0)
 
 
 def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
@@ -552,29 +895,17 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     chain of each feature's iterations (one warp each: 8.8-9.0 us at 768
     features on an NVIDIA H100 80GB HBM3 at 700 W, against a bytes bound
     of 0.34 us); the host's checks, three allocations and the ctypes call
-    cost more.  On the CPU the plain
-    version runs."""
+    cost more.  On the CPU the plain version runs.  Under
+    `torch.func.vmap` the batch takes one launch
+    (`align_iclk_mxu_batched`)."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    if _on_card(stack, use_pallas):
-        return _align_window_kernel(stack, lvl, ref_patch, ref_dx, ref_dy,
-                                    init_uv, valid, n_iter, h, w,
-                                    zmssd_factor, min_patch_std)
-    n, p, _ = ref_patch.shape
-    area = p * p
-    hinv = _iclk_hinv(ref_dx, ref_dy)
-    init_uv = _nan0(init_uv)
-    uv, mean, step2, score, std = _align_mxu_plain(
-        stack, lvl, ref_patch, ref_dx, ref_dy, hinv, init_uv, valid, n_iter,
-        p // 2, h, w)
-    drift = torch.linalg.norm(uv - init_uv, dim=-1)
-    converged = valid & (step2 < 4.0 * MIN_UPDATE_SQUARED) & (drift < p)
-    if zmssd_factor is not None:
-        converged = converged & (score < zmssd_factor * area)
-    if min_patch_std is not None:
-        converged = converged & (std >= min_patch_std)
-    return uv, converged, mean
+    return _call(
+        _align_mxu_op, _align_mxu_body, stack, lvl, ref_patch, ref_dx, ref_dy,
+        init_uv, valid, int(n_iter), int(h), int(w), bool(use_pallas),
+        None if zmssd_factor is None else float(zmssd_factor),
+        None if min_patch_std is None else float(min_patch_std))
 
 
 def count_iclk_updates(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,

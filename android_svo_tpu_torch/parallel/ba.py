@@ -1,7 +1,7 @@
-"""Local bundle adjustment by Schur complement on one device — port of
-`local_ba`, `select_core_keyframes` and their helpers in
-`android_svo_tpu/parallel/ba.py` (the sharded form, `make_sharded_ba`, is not
-ported yet).
+"""Local bundle adjustment by Schur complement — port of
+`android_svo_tpu/parallel/ba.py`: `local_ba` on one device,
+`make_sharded_ba` with the landmark axis split over the mesh's "map" ranks,
+and `select_core_keyframes`.
 
 Gauss-Newton over the core keyframe window with Huber weights on unit-plane
 reprojection residuals.  Every per-landmark block (U_p, its inverse, the
@@ -10,6 +10,9 @@ camera system is a sum over the landmark axis, then one dense (6 NC)^2
 solve:
     S = H_cc - H_cp H_pp^-1 H_pc;   rhs = -b_c + H_cp H_pp^-1 b_p
     S dx_c = rhs;   dx_p = -H_pp^-1 (b_p + H_pc dx_c)
+One iteration is three parts: the per-landmark partial sums, the
+replicated reduced solve, and the landmarks' back-substitution; sharded,
+the partial sums are summed over the landmark shards in between.
 The einsums run in full fp32 (the package disables TF32 at import).
 """
 
@@ -43,6 +46,14 @@ def local_ba(pos: torch.Tensor, point_valid: torch.Tensor,
 
     Returns (q_kw', t_kw', pos', chi2) — poses updated at core_slots only.
     """
+    return _run_ba(pos, point_valid, obs_kf, obs_f, q_kw, t_kw, core_slots,
+                   fixed, focal, cfg, reduce=None)
+
+
+def _run_ba(pos, point_valid, obs_kf, obs_f, q_kw, t_kw, core_slots, fixed,
+            focal, cfg: SVOConfig, reduce):
+    """The GN loop; `reduce` (None on one device) sums the per-landmark
+    partial sums over the landmark shards, once per iteration."""
     huber_width = cfg.loba_robust_huber_width / focal
     core_slots = core_slots.to(torch.int64)
     is_core = obs_kf[:, :, None] == core_slots[None, None, :]  # (P,O,NC)
@@ -51,16 +62,23 @@ def local_ba(pos: torch.Tensor, point_valid: torch.Tensor,
     Ehot = is_core.to(pos.dtype)
     chi2 = None
     for _ in range(cfg.loba_n_iter):
-        q_kw, t_kw, pos, chi2 = _ba_iteration(
-            pos, obs_f, obs_ok, Ehot, q_kw, t_kw, core_slots, fixed, obs_kf,
-            huber_width, point_valid)
+        sums, local = _ba_partials(pos, obs_f, obs_ok, Ehot, q_kw, t_kw,
+                                   obs_kf, huber_width)
+        if reduce is not None:
+            sums = reduce(sums)
+        Hcc, bc, S_red, rhs_red, chi2 = sums
+        dxc = _ba_solve(Hcc, bc, S_red, rhs_red, fixed)
+        q_kw, t_kw, pos = _ba_update(pos, point_valid, local, dxc, q_kw,
+                                     t_kw, core_slots)
     return q_kw, t_kw, pos, chi2
 
 
-def _ba_iteration(pos, obs_f, obs_ok, Ehot, q_kw, t_kw, core_slots, fixed,
-                  obs_kf, huber_width, point_valid):
+def _ba_partials(pos, obs_f, obs_ok, Ehot, q_kw, t_kw, obs_kf, huber_width):
+    """The per-landmark part of one GN iteration: the reduced camera
+    system's sums over this set of landmarks (Hcc, bc, S_red, rhs_red and
+    chi2, which add over landmark shards) and what the landmarks' own
+    back-substitution needs (ok, G, Upp_inv, bp)."""
     dtype = pos.dtype
-    NC = core_slots.shape[0]
     kf_idx = torch.clamp(obs_kf, min=0).to(torch.int64)
     T = SE3(q=q_kw[kf_idx], t=t_kw[kf_idx])                  # (P,O) poses
     xyz = T.apply(pos[:, None, :])                           # (P,O,3)
@@ -110,11 +128,19 @@ def _ba_iteration(pos, obs_f, obs_ok, Ehot, q_kw, t_kw, core_slots, fixed,
     Y = torch.einsum("poij,poik->pojk", wJc, Jp)             # (P,O,6,3)
     G = torch.einsum("poc,pojk->pcjk", Ehot, Y)              # (P,NC,6,3)
 
-    # Schur reduction over the landmark axis
+    # Schur reduction over the landmark axis (the sum a sharded landmark
+    # axis reduces across ranks)
     GU = torch.einsum("pcjk,pkl->pcjl", G, Upp_inv)          # (P,NC,6,3)
     S_red = torch.einsum("pcjl,pdml->cdjm", GU, G)           # (NC,NC,6,6)
     rhs_red = torch.einsum("pcjl,pl->cj", GU, bp)            # (NC,6)
+    return (Hcc, bc, S_red, rhs_red, chi2), (ok, G, Upp_inv, bp)
 
+
+def _ba_solve(Hcc, bc, S_red, rhs_red, fixed):
+    """The reduced camera system's solve (replicated): the dense Schur
+    complement, gauge fixing, the trace regulariser, the explicit Cholesky
+    and the fp32 safety net.  Returns the camera updates dx_c (NC, 6)."""
+    NC = Hcc.shape[0]
     S = _to_dense(Hcc, NC) - _cross_to_dense(S_red, NC)
     rhs = (-bc + rhs_red).reshape(NC * 6)
 
@@ -130,9 +156,13 @@ def _ba_iteration(pos, obs_f, obs_ok, Ehot, q_kw, t_kw, core_slots, fixed,
     # update" instead of poisoning the keyframe arena
     cam_ok = (torch.all(torch.isfinite(dxc), dim=-1)
               & (torch.linalg.norm(dxc, dim=-1) < 10.0))
-    dxc = torch.where(cam_ok[:, None], dxc, torch.zeros_like(dxc))
+    return torch.where(cam_ok[:, None], dxc, torch.zeros_like(dxc))
 
-    # back-substitute landmarks: dx_p = -Upp^-1 (bp + H_pc dx_c)
+
+def _ba_update(pos, point_valid, local, dxc, q_kw, t_kw, core_slots):
+    """Back-substitute this set of landmarks and apply the camera updates:
+    dx_p = -Upp^-1 (bp + H_pc dx_c); T_kw <- exp(dx_c) o T_kw."""
+    ok, G, Upp_inv, bp = local
     Hpc_dxc = torch.einsum("pcjk,cj->pk", G, dxc)            # (P,3)
     dxp = -torch.einsum("pkl,pl->pk", Upp_inv, bp + Hpc_dxc)
     has_obs = torch.any(ok, dim=1)
@@ -142,14 +172,14 @@ def _ba_iteration(pos, obs_f, obs_ok, Ehot, q_kw, t_kw, core_slots, fixed,
     pos_new = torch.where((point_valid & has_obs & step_ok)[:, None],
                           pos + dxp, pos)
 
-    # apply camera updates: T_kw <- exp(dx) o T_kw (core slots are distinct)
+    # the core slots are distinct
     T_core = SE3(q=q_kw[core_slots], t=t_kw[core_slots])
     T_new = SE3.exp(dxc).compose(T_core).normalize()
     q_out = q_kw.clone()
     t_out = t_kw.clone()
     q_out[core_slots] = T_new.q
     t_out[core_slots] = T_new.t
-    return q_out, t_out, pos_new, chi2
+    return q_out, t_out, pos_new
 
 
 def _to_dense(Hcc: torch.Tensor, NC: int) -> torch.Tensor:
@@ -163,6 +193,42 @@ def _to_dense(Hcc: torch.Tensor, NC: int) -> torch.Tensor:
 def _cross_to_dense(S_red: torch.Tensor, NC: int) -> torch.Tensor:
     """(NC,NC,6,6) -> (NC*6, NC*6)."""
     return S_red.permute(0, 2, 1, 3).reshape(NC * 6, NC * 6)
+
+
+def make_sharded_ba(cfg: SVOConfig, focal, mesh):
+    """`local_ba` with the landmark axis split over the mesh's "map" axis
+    (JAX `make_sharded_ba`).
+
+    Returns fn(pos, valid, obs_kf, obs_f, q_kw, t_kw, core, fixed) ->
+    (q', t', pos', chi2): every rank passes its own block of landmarks
+    (pos, valid, obs_kf, obs_f) and the same keyframe poses, core window
+    and gauge mask, and gets its block's pos' and the replicated poses and
+    chi2.  Each Gauss-Newton iteration sums the reduced camera system's
+    partial sums (Hcc, bc, S_red, rhs_red, chi2: 36 NC^2 + 48 NC + 1
+    float32, 4,564 bytes at NC = 5) over the "map" group in ONE fused
+    `all_reduce` (`mesh_lib.all_reduce_sum`); the solve and the trace
+    regulariser follow on every rank, then each back-substitutes its own
+    landmarks."""
+    from android_svo_tpu_torch.parallel import mesh as mesh_lib
+    group = mesh.get_group(mesh_lib.MAP_AXIS)
+
+    def reduce(sums):
+        Hcc, bc, S_red, rhs_red, chi2 = sums
+        parts = (Hcc, bc, S_red, rhs_red, chi2.reshape(1))
+        buf = mesh_lib.all_reduce_sum(
+            torch.cat([x.reshape(-1) for x in parts]), group)
+        out, off = [], 0
+        for x in parts:
+            out.append(buf[off:off + x.numel()].reshape(x.shape))
+            off += x.numel()
+        out[-1] = out[-1].reshape(())
+        return tuple(out)
+
+    def fn(pos, point_valid, obs_kf, obs_f, q_kw, t_kw, core_slots, fixed):
+        return _run_ba(pos, point_valid, obs_kf, obs_f, q_kw, t_kw,
+                       core_slots, fixed, focal, cfg, reduce=reduce)
+
+    return fn
 
 
 def select_core_keyframes(q_kw, t_kw, kf_valid, T_cw: SE3, n_core: int):

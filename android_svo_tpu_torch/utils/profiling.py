@@ -105,9 +105,11 @@ _DISPATCH_RANGE = "dispatch_counts"
 def dispatch_counts(fn) -> tuple[int, int]:
     """(ATen ops, device activities) of one call of `fn` under
     `torch.profiler`: the ATen ops `fn` dispatches itself (those directly
-    inside its range, not the ops they call in turn) and the kernels,
-    copies and sets it puts on the card.  The card is synchronised before
-    the profile closes, where there is one."""
+    inside its range, not the ops they call in turn; a port custom op,
+    `svo_torch::*`, is looked through, and the ATen ops directly inside it
+    count as `fn`'s own) and the kernels, copies and sets it puts on the
+    card.  The card is synchronised before the profile closes, where there
+    is one."""
     from torch.autograd import DeviceType
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -117,12 +119,18 @@ def dispatch_counts(fn) -> tuple[int, int]:
             fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+
+    def own(e):
+        p = e.cpu_parent
+        if p is not None and p.name.startswith("svo_torch::"):
+            p = p.cpu_parent
+        return p is not None and p.name == _DISPATCH_RANGE
+
     n_ops = n_dev = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n_dev += e.name != _DISPATCH_RANGE   # the range's own device span
-        elif (e.name.startswith("aten::") and e.cpu_parent is not None
-              and e.cpu_parent.name == _DISPATCH_RANGE):
+        elif e.name.startswith("aten::") and own(e):
             n_ops += 1
     return n_ops, n_dev
 

@@ -81,8 +81,36 @@ every phase passed):
                the tail's T_cw.t within 1e-6; (f) the overlay on every 10th
                tracked frame: one PPM per call, the cube's faces drawn
                whenever its corners are in front of the camera.
-Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9) runs with
-the launch counts set to 0 just before it and read just after.
+ 10. batched — (in a process of its own, started by this script) the
+               batched multi-sequence step and the sharded paths at
+               MH_01 cam0's geometry: (a) the four patch kernels' batched
+               forms at B=11 (11 frames' 3x480x768 stacks, 768 features
+               each): within the gate's bounds of their batched plain
+               versions, bit for bit the 11 single launches, one launch
+               and one device activity per call; (b) 11 sequences (their
+               own textures, seeds 0-10, and orbits) bootstrapped each in
+               its own FrameHandler at the default SVOConfig(), stacked,
+               and tracked by make_batched_track for 30 frames: 0
+               failures, ATE <= 0.02 per sequence, a step where some but
+               not all take a keyframe; the first 10 frames rerun as each
+               sequence's single step (camera centres within 1e-4, equal
+               result codes, each kernel launched per step as the slowest
+               sequence's single step would, per alignment level); the
+               batched plain run (no launch, centres within 5e-3); the
+               step's time at B=11 and B=1, the single step's, a profile
+               of 3 steps; (c) make_sharded_ba on the card, 2 gloo ranks
+               and an NCCL group over every card, P = 2048 and 16384, O=8,
+               NC=5: within 1e-5 of local_ba, chi2 within 1e-4, exactly
+               loba_n_iter all-reduces of 4,564 bytes; (d)
+               make_sharded_track in 2 gloo ranks on the card, (data=2,
+               map=1) and (data=1, map=2), and on a host of 2 or more
+               cards one NCCL rank per card on their (data, map) mesh,
+               4 sequences from a checkpoint of 10b's stacked state, 3
+               steps: within 1e-4 of the unsharded batched step, equal
+               result codes.
+Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
+plain run) runs with the launch counts set to 0 just before it and read
+just after.
 Prints a `{"kernels": [...]}` line (all five kernels) and ends with one JSON
 line `{"ok": true, "device": {...}}`.
 """
@@ -93,6 +121,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -369,6 +398,26 @@ def edge_poses(synthetic, n, device):
         device=device) for i in range(n)]
 
 
+def profiled_dispatch(fn, counts, name, what, attempts=6):
+    """`dispatch_counts` of one call of fn, profiled again (up to
+    `attempts` times, a pause between) when the kernel launched (its count
+    grew) but the profile holds no device activity: the profiler loses a
+    record now and then (three times running in one run on an H100)."""
+    import torch
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    for attempt in range(attempts):
+        before = counts[name]
+        n_ops, n_dev = dispatch_counts(fn)
+        if n_dev or counts[name] == before:
+            break
+        log(f"dispatch {name} ({what}): the kernel launched but the profile "
+            f"recorded no device activity (attempt {attempt + 1}); "
+            "profiling again")
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    return n_ops, n_dev
+
+
 def run_with_plain(cfg, cam, imgs, poses, device, pk, what):
     """`run_sequence` on the kernels and again on the plain versions, each
     with the launch counts set to 0 just before it and read just after.
@@ -422,9 +471,7 @@ def profile_frames(handler, imgs, timestamps=None):
     launched inside it, and its span on the device timeline.  Returns the
     summary and each frame's TrackResult."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from android_svo_tpu_torch.utils.profiling import device_time_us
 
     n = len(imgs)
     stamps = timestamps if timestamps is not None else [0.0] * n
@@ -435,9 +482,20 @@ def profile_frames(handler, imgs, timestamps=None):
         results = [handler.add_image(img, ts) for img, ts in zip(imgs, stamps)]
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.events()
+    return ({"frames": n, "wall_ms_profiled": wall_ms,
+             **device_summary(events, n),
+             "stages": stage_table(events, n)}, results)
+
+
+def stage_table(events, n):
+    """Per stage (the track_frame ranges), divided by n: host wall time,
+    the device time of the work launched inside it, and its span on the
+    device timeline."""
+    from torch.autograd import DeviceType
+    from android_svo_tpu_torch.utils.profiling import device_time_us
     stages = {k: {"host_ms": 0.0, "device_ms": 0.0, "device_span_ms": 0.0}
               for k in STAGES}
-    events = prof.events()
     for e in events:
         if e.name in STAGES:
             st = stages[e.name]
@@ -447,8 +505,7 @@ def profile_frames(handler, imgs, timestamps=None):
             else:
                 st["host_ms"] += dur / 1e3 / n
                 st["device_ms"] += device_time_us(e) / 1e3 / n
-    return ({"frames": n, "wall_ms_profiled": wall_ms,
-             **device_summary(events, n), "stages": stages}, results)
+    return stages
 
 
 def profile_call(fn, reps=3):
@@ -749,6 +806,440 @@ def dataset_phase(dev, label, workdir):
             "phase_s": time.perf_counter() - t_phase}
 
 
+N_SEQ = 11               # BASELINE.json: "all 11 EuRoC sequences, one host"
+N_BATCH = 30             # phase 10b's batched frames
+N_SINGLE = 10            # of them, rerun as single steps and compared
+N_PROFILE = 3            # batched steps profiled after the window
+N_B1 = 10                # steps of the B=1 batched run
+SEQ_PREROLL = 4          # bootstrap frames before each orbit
+BA_SIZES = (2048, 16384)  # loba_point_budget; BA_PROFILE.json's largest P
+
+
+def seq_poses(synthetic, s, n, device):
+    """Phase 10b's sequence s: a pre-roll of 0.15 per frame along x
+    (enough disparity for the default init_min_disparity of 50 px, as
+    `make_poses`'s pre-roll is at 20), then an orbit of its own, starting
+    at phase 2 pi s / 11 and taking 148 - 6 s frames per turn (so the
+    sequences reach their keyframes at different steps), pitched 0.45 rad
+    and turning slowly as in `make_poses`."""
+    phi = 2.0 * math.pi * s / N_SEQ
+    n_turn = 148 - 6 * s
+    R, r = 0.5, 0.16
+    poses = []
+    for i in range(n):
+        k = SEQ_PREROLL - i
+        if k > 0:
+            x, y, j = -0.15 * k, 0.0, 0
+        else:
+            j = -k
+            ph = phi + 2.0 * math.pi * j / n_turn
+            x = R * (math.sin(ph) - math.sin(phi))
+            y = r * (math.cos(ph) - math.cos(phi))
+        poses.append(synthetic.lookdown_pose(
+            x, y, -3.0, (0.45 + 0.0008 * j, -0.0008 * j, 0.001 * j),
+            device=device))
+    return poses
+
+
+def batched_bounds(frames, pk):
+    """The batched forms' bounds: each frame's bytes and operations
+    (`kernel_bounds`), summed over the batch."""
+    per = [kernel_bounds(x, pk) for x in frames]
+    return {name: bound(sum(p[name][2] for p in per),
+                        sum(p[name][3] for p in per)) for name in per[0]}
+
+
+def library_sample_batched_ms(xb):
+    """grid_sample on the batched sparse-align sampler's inputs: 4x4
+    patches on each frame's level-2 substack, the B substacks as one
+    (B, 1, rows, cols) input."""
+    import torch
+    import torch.nn.functional as F
+    from android_svo_tpu_torch.utils.profiling import device_ms
+    sub = xb["sub"]                              # (B, 1, rows, cols)
+    B, _, h, w = sub.shape
+    offs = torch.arange(4, device=sub.device, dtype=torch.float32) - 2
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    px = xb["sub_uv"][..., None, 0] + ox.reshape(1, 1, -1)
+    py = xb["sub_uv"][..., None, 1] + oy.reshape(1, 1, -1)
+    grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1], -1)
+    im = sub.contiguous()
+
+    def call():
+        return F.grid_sample(im, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return time_ms(call), device_ms(call, "grid_sampler")
+
+
+def batched_phase(dev, label, workdir):
+    """Phase 10: the batched multi-sequence step and the sharded paths at
+    EuRoC MH_01 cam0's geometry.  Returns its numbers; raises CheckFailed
+    on any check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.data import euroc, synthetic
+    from android_svo_tpu_torch.entry import sparse_ba_problem
+    from android_svo_tpu_torch.evals.trajectory import ate_rmse
+    from android_svo_tpu_torch.geometry.camera import PinholeCamera
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.ops import sparse_align
+    from android_svo_tpu_torch.parallel.ba import local_ba
+    from android_svo_tpu_torch.parallel.mesh import mesh_shape
+    from android_svo_tpu_torch.parallel.multi_seq import make_batched_track
+    from android_svo_tpu_torch.tools.sharded_rank import (config_arrays,
+                                                           spawn_ranks)
+    from android_svo_tpu_torch.utils.checkpoint import save_state
+    from android_svo_tpu_torch.utils.profiling import device_ms
+
+    t_phase = time.perf_counter()
+    w, h = euroc.MH01_CAM0["resolution"]
+    res = {"card": label, "batch": N_SEQ, "resolution": [w, h]}
+
+    # ---- 10a. the batched kernels at B=11, 752x480, 768 features each ------
+    frames, xb = silicon_gate.batched_gate_inputs(N_SEQ, n=768, h=h, w=w,
+                                                  seed=0, device=dev)
+    gate = silicon_gate.run_batched_gate(frames, xb)
+    torch.cuda.synchronize()
+    log(f"batched gate B={N_SEQ} at {w}x{h} (stack "
+        f"{tuple(xb['stack'].shape)}): " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in gate.detail.items()}))
+    require(gate.ok, f"batched kernel gate failed: {gate.failures}")
+    calls = silicon_gate.batched_kernel_calls(xb)
+    bounds = batched_bounds(frames, pk)
+    names = ("sample_patches_kernel", "epi_scan_kernel", "align_iclk_kernel",
+             "align_iclk_window_kernel")
+    # every dispatch profile before any timing profile, as in phase 3 (a
+    # device-only profile just before has left the next one without device
+    # records)
+    ops = {}
+    for name in names:
+        fn = calls[name]
+        ops[name], n_dev = profiled_dispatch(lambda: fn(True), pk.LAUNCHES,
+                                             name, f"batched B={N_SEQ}")
+        require(n_dev == 1, f"batched {name}: {n_dev} device activities "
+                "per call")
+    lib = library_sample_batched_ms(xb)
+    forms = {}
+    for name in names:
+        fn = calls[name]
+        kernel = silicon_gate.kernel_of(name)
+        n_ops, n_dev = ops[name], 1
+        k_ms = time_ms(lambda: fn(True))
+        p_ms = time_ms(lambda: fn(False), iters=5, warmup=1)
+        d_ms = device_ms(lambda: fn(True), kernel)
+        singles = [silicon_gate.gate_calls(x)[name] for x in frames]
+        s_ms = time_ms(lambda: [c(True) for c in singles], iters=10)
+        forms[kernel] = {
+            "ms": k_ms, "kernel_ms": d_ms, "plain_ms": p_ms,
+            "singles_ms": s_ms, "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "host_ops_per_call": n_ops,
+            "max_abs_err": gate.max_abs_err.get(kernel, 0.0),
+            "launches_per_call": 1,
+            "library_ms": lib[0] if kernel == "sample_patches_kernel"
+            else None,
+            "library_kernel_ms": lib[1] if kernel == "sample_patches_kernel"
+            else None}
+        log(f"batched {name} B={N_SEQ}: wrapper {k_ms:.4f} ms, device "
+            f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
+            f"{p_ms:.4f} ms, {N_SEQ} single launches {s_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.5f} ms ({bounds[name][1]}), {n_ops} ops and "
+            f"{n_dev} device activity per call [{label}]")
+    log(f"grid_sample on the {N_SEQ} substacks (one call): {lib[0]:.4f} ms, "
+        f"device {lib[1]} ms [{label}]")
+    res["kernels"] = forms
+    del frames, xb, calls
+
+    # ---- 10b. 11 sequences at MH_01 cam0's geometry, batched --------------
+    fx, fy, cx, cy = euroc.MH01_CAM0["intrinsics"]
+    dist = euroc.MH01_CAM0["distortion_coefficients"]
+    cam = PinholeCamera.create(w, h, fx, fy, cx, cy, *dist, device=dev)
+    cfg = SVOConfig()
+    dims = st.arena_dims(cfg, w, h)
+    n_frames = SEQ_PREROLL + 8 + N_BATCH + N_PROFILE
+    states, windows, gts, boot_at = [], [], [], []
+    t0 = time.perf_counter()
+    for s in range(N_SEQ):
+        tex = synthetic.make_texture(torch.Generator().manual_seed(s), 2048,
+                                     device=dev)
+        poses = seq_poses(synthetic, s, n_frames, dev)
+        handler = fh.FrameHandler(cam, cfg, device=dev)
+        i = 0
+        while handler.stage != fh.STAGE_DEFAULT_FRAME and i < SEQ_PREROLL + 8:
+            handler.add_image(synthetic.render(tex, cam, poses[i]))
+            i += 1
+        require(handler.stage == fh.STAGE_DEFAULT_FRAME,
+                f"sequence {s} did not bootstrap in {i} frames")
+        boot_at.append(i - 1)
+        states.append(handler.vo)
+        win = poses[i:i + N_BATCH + N_PROFILE]
+        windows.append(torch.stack([synthetic.render(tex, cam, p)
+                                    for p in win]))
+        gts.append(np.stack([p.t.cpu().numpy() for p in win]))
+        del handler
+    torch.cuda.synchronize()
+    log(f"batched setup: {N_SEQ} sequences bootstrapped at frames "
+        f"{boot_at} in {time.perf_counter() - t0:.1f} s")
+    frames_b = torch.stack(windows, 1)            # (T, B, H, W)
+    vo0 = st.stack_states(states)
+
+    track_b = make_batched_track(cfg, cam, dims)
+    vo_b = vo0
+    outs, step_ms, per_step, iters_b = [], [], [], []
+    pk.reset_launch_counts()
+    for k in range(N_BATCH):
+        before = dict(pk.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vo_b, out = track_b(vo_b, frames_b[k])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        iters_b.append(list(sparse_align.ITERATIONS))
+        per_step.append({n: pk.LAUNCHES[n] - before[n] for n in before})
+        outs.append({"t_wc": out["t_wc"].cpu().numpy(),
+                     "t": out["T_cw"].t.cpu().numpy(),
+                     "result": out["result"].cpu().numpy()})
+    launches_b = dict(pk.LAUNCHES)
+    codes = np.stack([o["result"] for o in outs])          # (T, B)
+    n_fail = (codes == pipeline.RES_FAILURE).sum(0)
+    kf = codes == pipeline.RES_IS_KEYFRAME
+    mixed = int(((kf.sum(1) > 0) & (kf.sum(1) < N_SEQ)).sum())
+    ates = [ate_rmse(np.stack([o["t_wc"][b] for o in outs]),
+                     gts[b][:N_BATCH]) for b in range(N_SEQ)]
+    med_b = statistics.median(step_ms)
+    log(f"batched run [{label}]: B={N_SEQ}, {N_BATCH} steps, failures per "
+        f"sequence {n_fail.tolist()}, keyframes per sequence "
+        f"{kf.sum(0).tolist()}, steps with some but not all keyframing "
+        f"{mixed}, ATE per sequence {[round(a, 6) for a in ates]}, median "
+        f"step {med_b:.2f} ms ({N_SEQ * 1e3 / med_b:.2f} sequence-frames/s)")
+    log(f"launches on the batched path: {json.dumps(launches_b)}")
+    require(int(n_fail.sum()) == 0, f"batched failures {n_fail.tolist()}")
+    require(all(math.isfinite(a) and a <= 0.02 for a in ates),
+            f"batched ATE over 0.02: {ates}")
+    require(mixed >= 1, "no step where some but not all sequences took a "
+            "keyframe")
+    for name, cnt in launches_b.items():
+        require(cnt > 0, f"{name} was not launched on the batched path")
+
+    # the single step of each sequence over the first N_SINGLE frames
+    track = pipeline.make_track_frame(cfg, cam, dims)
+    single_ms, d_single, single_its = [], 0.0, []
+    for b in range(N_SEQ):
+        vo = states[b]
+        for k in range(N_SINGLE):
+            before = dict(pk.LAUNCHES)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vo, o = track(vo, frames_b[k, b])
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+            its = list(sparse_align.ITERATIONS)
+            single_its.append((k, its))
+            got = {n: pk.LAUNCHES[n] - before[n] for n in before}
+            d = float(np.abs(o["t_wc"].cpu().numpy()
+                             - outs[k]["t_wc"][b]).max())
+            d_single = max(d_single, d)
+            require(int(o["result"]) == int(codes[k, b]),
+                    f"step {k}, sequence {b}: single result "
+                    f"{int(o['result'])} != batched {int(codes[k, b])}")
+            # the batched sampler launches per level what the slowest
+            # member's loop needs, the other kernels what one step does
+            for n, cnt in got.items():
+                extra = (sum(iters_b[k]) - sum(its)
+                         if n == "sample_patches_kernel" else 0)
+                require(per_step[k][n] == cnt + extra,
+                        f"step {k}: {n} launched {per_step[k][n]} times "
+                        f"batched, sequence {b} alone {cnt} (+{extra})")
+                require(per_step[k][n] < N_SEQ * max(cnt, 1),
+                        f"step {k}: {n} launched B times as often")
+    # the batched loop runs, per level, as long as its slowest element's
+    # own loop: one sampler launch per iteration for the whole batch
+    for k in range(N_SINGLE):
+        slowest = [max(col) for col in zip(*(its for j, its in single_its
+                                             if j == k))]
+        require(iters_b[k] == slowest, f"step {k}: the batched loop ran "
+                f"{iters_b[k]} iterations per level, its slowest sequence "
+                f"alone {slowest}")
+    med_s = statistics.median(single_ms)
+    log(f"batched vs single steps [{label}]: first {N_SINGLE} frames of "
+        f"every sequence, camera centres max |d| {d_single:.3e} (limit "
+        f"1e-4), result codes equal, alignment iterations per level those "
+        f"of the slowest sequence alone; median single step {med_s:.2f} ms "
+        f"({1e3 / med_s:.2f} sequence-frames/s)")
+    require(d_single <= 1e-4, f"batched vs single centres {d_single} > 1e-4")
+
+    # the same code path at B=1
+    track_1 = make_batched_track(cfg, cam, dims)
+    vo_1 = st.stack_states(states[:1])
+    b1_ms = []
+    for k in range(N_B1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vo_1, _ = track_1(vo_1, frames_b[k, :1])
+        torch.cuda.synchronize()
+        b1_ms.append((time.perf_counter() - t1) * 1e3)
+    med_1 = statistics.median(b1_ms)
+
+    # where a batched step's time goes: N_PROFILE steps after the window
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(N_BATCH, N_BATCH + N_PROFILE):
+            vo_b, _ = track_b(vo_b, frames_b[k])
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t1) * 1e3 / N_PROFILE
+    summ = device_summary(prof.events(), N_PROFILE)
+    summ["stages"] = stage_table(prof.events(), N_PROFILE)
+    summ["wall_ms_profiled"] = prof_ms
+    summ["busy_share"] = summ["device_busy_ms"] / med_b
+    summ["idle_share"] = 1.0 - summ["busy_share"]
+    del vo_b
+    log(f"batched timing [{label}]: median step B={N_SEQ} {med_b:.2f} ms, "
+        f"B=1 on the same path {med_1:.2f} ms, single step {med_s:.2f} ms; "
+        f"throughput {N_SEQ * 1e3 / med_b:.2f} vs {1e3 / med_s:.2f} "
+        f"sequence-frames/s ({N_SEQ * med_s / med_b:.2f}x); profiled "
+        f"{summ['device_activities']:.1f} device activities and "
+        f"{summ['device_busy_ms']:.2f} ms busy per step, busy share "
+        f"{summ['busy_share']:.3f}")
+    log("batched step stages (host ms, device ms per step, profiled): "
+        + json.dumps({k: [round(v["host_ms"], 2), round(v["device_ms"], 3)]
+                      for k, v in summ["stages"].items()}))
+
+    # the batched plain versions: no launch, the same track
+    pk.reset_launch_counts()
+    track_p = make_batched_track(cfg.replace(use_pallas=False), cam, dims)
+    vo_p, d_plain, codes_p = vo0, 0.0, []
+    for k in range(N_BATCH):
+        vo_p, o = track_p(vo_p, frames_b[k])
+        d_plain = max(d_plain, float(np.abs(o["t_wc"].cpu().numpy()
+                                            - outs[k]["t_wc"]).max()))
+        codes_p.append(o["result"].cpu().numpy())
+    del vo_p
+    log(f"batched plain run: launches {json.dumps(pk.LAUNCHES)}, failures "
+        f"{int((np.stack(codes_p) == pipeline.RES_FAILURE).sum())}, camera "
+        f"centres max |d| vs the kernel run {d_plain:.3e} (limit 5e-3)")
+    require(all(v == 0 for v in pk.LAUNCHES.values()),
+            f"the batched plain run launched kernels: {pk.LAUNCHES}")
+    require(d_plain <= 5e-3, f"batched plain centres {d_plain} > 5e-3")
+    res.update({
+        "frames": N_BATCH, "boot_frames": boot_at, "ate": ates,
+        "failures": n_fail.tolist(), "keyframes": kf.sum(0).tolist(),
+        "mixed_keyframe_steps": mixed, "launches": launches_b,
+        "launches_per_step": {n: v / N_BATCH for n, v in launches_b.items()},
+        "median_step_ms": med_b, "median_step_ms_b1": med_1,
+        "median_single_step_ms": med_s,
+        "seq_frames_per_s": N_SEQ * 1e3 / med_b,
+        "seq_frames_per_s_single": 1e3 / med_s,
+        "single_vs_batched_centre_dev": d_single,
+        "plain_centre_dev": d_plain, "profile": summ})
+
+    # ---- 10c. the sharded local BA on the card -----------------------------
+    focal = float(fx)
+    n_core = cfg.loba_num_kfs + 1
+    probs, refs = {}, []
+    for i, P in enumerate(BA_SIZES):
+        # every keyframe of the problem in the core window, as the handler
+        # passes the arena with only the core window's observations live
+        prob = sparse_ba_problem(P, cfg.max_obs_per_point, n_core,
+                                 torch.Generator().manual_seed(i),
+                                 n_core=n_core, device=dev)
+        ref = local_ba(*prob, focal, cfg)
+        ref_ms = time_ms(lambda: local_ba(*prob, focal, cfg), iters=5,
+                         warmup=1)
+        refs.append((P, [x.cpu().numpy() for x in ref], ref_ms))
+        for name, x in zip(("pos", "valid", "obs_kf", "obs_f", "q_kw",
+                            "t_kw", "core", "fixed"), prob):
+            probs[f"p{i}.{name}"] = x.cpu().numpy()
+        probs[f"p{i}.focal"] = np.asarray(focal)
+    src = os.path.join(workdir, "ba.npz")
+    np.savez(src, n_problems=np.asarray(len(BA_SIZES)), **probs,
+             **config_arrays(cfg))
+    want_bytes = 4 * (36 * n_core ** 2 + 48 * n_core + 1)
+    ba = {}
+    for backend, n in (("gloo", 2), ("nccl", torch.cuda.device_count())):
+        ranks = spawn_ranks("ba", n, 1, src, workdir, "cuda", backend,
+                            extra=("--repeat", "5"), timeout=300)
+        for i, (P, (q, t, pos, chi2), ref_ms) in enumerate(refs):
+            pre = f"p{i}."
+            dq = max(float(np.abs(r[pre + "q"] - q).max()) for r in ranks)
+            dt = max(float(np.abs(r[pre + "t"] - t).max()) for r in ranks)
+            dp = max(float(np.abs(r[pre + "pos"]
+                                  - pos[r[pre + "rows"][0]:
+                                        r[pre + "rows"][1]]).max())
+                     for r in ranks)
+            dc = max(abs(float(r[pre + "chi2"]) - float(chi2))
+                     / max(abs(float(chi2)), 1e-12) for r in ranks)
+            sizes = [r[pre + "allreduce_bytes"].tolist() for r in ranks]
+            ms = statistics.median(float(r[pre + "ms"]) for r in ranks)
+            ba[f"{backend}_{P}"] = {
+                "ranks": n, "q_dev": dq, "t_dev": dt, "pos_dev": dp,
+                "chi2_rel_dev": dc, "allreduces": sizes[0], "ms": ms,
+                "unsharded_ms": ref_ms}
+            log(f"sharded BA [{label}] {backend} x{n} P={P}: q/t/pos max "
+                f"|d| vs local_ba {dq:.2e}/{dt:.2e}/{dp:.2e}, chi2 rel "
+                f"{dc:.2e}, all-reduces {sizes[0]}, {ms:.3f} ms per call "
+                f"(unsharded {ref_ms:.3f} ms)")
+            require(max(dq, dt, dp) <= 1e-5, f"sharded BA {backend} P={P} "
+                    f"differs from local_ba by {max(dq, dt, dp)}")
+            require(dc <= 1e-4, f"sharded BA {backend} P={P} chi2 rel {dc}")
+            require(all(s == [want_bytes] * cfg.loba_n_iter for s in sizes),
+                    f"sharded BA {backend} P={P}: all-reduces {sizes}, not "
+                    f"{cfg.loba_n_iter} of {want_bytes} bytes")
+    res["sharded_ba"] = ba
+
+    # ---- 10d. the sharded step: two gloo ranks on the card ----------------
+    n_sh = 4
+    ckpt = os.path.join(workdir, "batched_ckpt")
+    save_state(ckpt, st.stack_states(states[:n_sh]))
+    sh_frames = frames_b[:3, :n_sh]
+    src = os.path.join(workdir, "track.npz")
+    np.savez(src, width=np.asarray(w), height=np.asarray(h),
+             imgs=sh_frames.cpu().numpy(), **config_arrays(cfg),
+             **{f"cam.{k}": getattr(cam, k).cpu().numpy()
+                for k in ("fx", "fy", "cx", "cy", "dist")})
+    vo_r = st.stack_states(states[:n_sh])
+    ref = []
+    for f in sh_frames:
+        vo_r, o = track_b(vo_r, f)
+        ref.append({"t": o["T_cw"].t.cpu().numpy(),
+                    "result": o["result"].cpu().numpy()})
+    del vo_r
+    sharded = {}
+    # two gloo ranks on the one card as (2, 1) and (1, 2); with more cards,
+    # one NCCL rank per card on the (data, map) mesh of the cards
+    runs = [("gloo", 2, 2), ("gloo", 2, 1)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", n_cards, mesh_shape(n_cards)[0]))
+    for backend, n, n_data in runs:
+        ranks = spawn_ranks("track", n, n_data, src, workdir, "cuda",
+                            backend, extra=("--ckpt", ckpt), timeout=300)
+        dev_t, same = 0.0, True
+        for r in ranks:
+            lo, hi = r["rows"]
+            for k, o in enumerate(ref):
+                dev_t = max(dev_t, float(np.abs(r["t"][k]
+                                                - o["t"][lo:hi]).max()))
+                same &= bool((r["result"][k] == o["result"][lo:hi]).all())
+        layout = f"{backend}_data={n_data},map={n // n_data}"
+        sharded[layout] = {"t_dev": dev_t, "results_equal": same}
+        log(f"sharded step [{label}] ({layout}, {backend} x{n}): "
+            f"{n_sh} sequences, 3 steps, T_cw.t max |d| vs unsharded "
+            f"{dev_t:.2e} (limit 1e-4), result codes equal {same}")
+        require(dev_t <= 1e-4 and same, f"sharded step ({layout}) differs "
+                f"from the unsharded batched step")
+    res["sharded_step"] = sharded
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -775,8 +1266,7 @@ def main() -> int:
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.tools import microbench_gather, reloc_demo
-    from android_svo_tpu_torch.utils.profiling import (device_ms,
-                                                       dispatch_counts)
+    from android_svo_tpu_torch.utils.profiling import device_ms
 
     dev = torch.device("cuda")
     # ---- 1. device --------------------------------------------------------
@@ -843,17 +1333,7 @@ def main() -> int:
     for name, cases in dispatch.items():
         counts = gp.LAUNCHES if name in gp.LAUNCHES else pk.LAUNCHES
         for what, limit, fn in cases:
-            for attempt in range(3):
-                before = counts[name]
-                n_ops, n_dev = dispatch_counts(fn)
-                if n_dev or counts[name] == before:
-                    break
-                # the wrapper launched its kernel (its count grew) but the
-                # profile holds no device activity: the profiler lost the
-                # record, which it does now and then; profile again
-                log(f"dispatch {name} ({what}): the kernel launched but the "
-                    f"profile recorded no device activity (attempt "
-                    f"{attempt + 1}); profiling again")
+            n_ops, n_dev = profiled_dispatch(fn, counts, name, what)
             log(f"dispatch {name} ({what}): {n_ops} ATen ops, {n_dev} "
                 f"device activities per call (limit {limit} and 1)")
             require(n_ops <= limit and n_dev == 1,
@@ -1236,6 +1716,20 @@ def main() -> int:
         ds = dataset_phase(dev, label, workdir)
     log(f"dataset phase: {ds['phase_s']:.1f} s [{label}]")
 
+    # ---- 10. the batched multi-sequence step and the sharded paths, in a
+    # process of its own: after phases 3-9 the profiler lost the device
+    # records of every batched dispatch profile (three runs on an H100),
+    # while a fresh process records them
+    with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+        out = os.path.join(workdir, "batched.json")
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--batched-phase", out], cwd=here,
+                            timeout=900).returncode
+        require(rc == 0, f"phase 10 failed (rc {rc})")
+        with open(out) as f:
+            bt = json.load(f)
+    log(f"batched phase: {bt['phase_s']:.1f} s [{label}]")
+
     kernels = []
     for name in ("sample_patches_kernel", "align_iclk_window_kernel",
                  "epi_scan_kernel", "align_iclk_kernel"):
@@ -1249,7 +1743,8 @@ def main() -> int:
                                  "reloc": launches_r[name],
                                  "lm": launches_lm[name],
                                  "edgelets": launches_e[name],
-                                 "dataset": ds["launches"][name]},
+                                 "dataset": ds["launches"][name],
+                                 "batched": bt["launches"][name]},
             "launches_per_frame": {"lm": per_lm[name],
                                    "edgelets": per_e[name],
                                    "dataset": ds["launches_per_frame"][name]},
@@ -1273,8 +1768,9 @@ def main() -> int:
                     "max_abs_err_752x480": ds["gate_err"].get(form, 0.0),
                     "library_ms": lib_ms.get(form, (None, None))[0],
                     "library_kernel_ms": lib_ms.get(form, (None, None))[1]}
-        if forms:
-            kernels[-1]["forms"] = forms
+        # the batched form: one launch for the 11 frames of phase 10a
+        forms[f"batched_b{N_SEQ}"] = bt["kernels"][name]
+        kernels[-1]["forms"] = forms
     pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",
@@ -1343,6 +1839,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"dataset": {k: v for k, v in ds.items()
                                   if k != "gate_err"}}), flush=True)
+    print(json.dumps({"batched": {k: v for k, v in bt.items()
+                                  if k != "kernels"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1350,8 +1848,28 @@ def main() -> int:
     return 0
 
 
+def batched_main(out_path: str) -> int:
+    """Phase 10 alone, its numbers written to `out_path` as JSON (the
+    kernels are built already, by phase 2 of the calling run)."""
+    import torch
+    from android_svo_tpu_torch.ops import cuda_build
+    from android_svo_tpu_torch.tools import microbench_gather
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda_build.library()
+    label = microbench_gather.card_label()
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(here, "build")) as workdir:
+        bt = batched_phase(torch.device("cuda"), label, workdir)
+    with open(out_path, "w") as f:
+        json.dump(bt, f, default=lambda o: o.item())     # numpy scalars
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--batched-phase"]:
+            sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+            sys.exit(batched_main(sys.argv[2]))
         sys.exit(main())
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

@@ -515,3 +515,62 @@ def test_handler_takes_device_and_pinned_frames(card):
     pinned = frame.cpu().pin_memory()
     got = handler._frame(pinned)
     assert got.device.type == "cuda" and torch.equal(got, frame)
+
+
+# ---------------------------------------------------------------------------
+# the batched forms: one launch for B frames, each frame as its own launch
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def batched_problem(card):
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.batched_gate_inputs(3, n=256, h=240, w=320, seed=2,
+                                            device=card)
+
+
+BATCHED_FORMS = ["sample_patches_kernel", "sample_patches_kernel/grad",
+                 "sample_patches_kernel/align1d", "epi_scan_kernel",
+                 "align_iclk_kernel", "align_iclk_window_kernel",
+                 "align_iclk_window_kernel/ungated"]
+
+
+@pytest.mark.parametrize("name", BATCHED_FORMS)
+def test_batched_kernel_matches_single_launches(batched_problem, name):
+    """A batched call is one launch, and each frame's rows equal that
+    frame's own single launch bit for bit."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    frames, xb = batched_problem
+    kernel = silicon_gate.kernel_of(name)
+    call = silicon_gate.batched_kernel_calls(xb)[name]
+    pk.reset_launch_counts()
+    out = call(True)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES[kernel] == 1
+    out = out if isinstance(out, tuple) else (out,)
+    for b, x in enumerate(frames):
+        single = silicon_gate.gate_calls(x)[name](True)
+        single = single if isinstance(single, tuple) else (single,)
+        for o, s in zip(out, single):
+            assert silicon_gate.same_bits(o[b], s), (name, b)
+
+
+def test_batched_gate(batched_problem):
+    from android_svo_tpu_torch.ops import silicon_gate
+    rep = silicon_gate.run_batched_gate(*batched_problem)
+    torch.cuda.synchronize()
+    assert rep.ok, rep.failures
+
+
+def test_vmap_of_a_wrapper_launches_once(batched_problem):
+    """torch.func.vmap over the per-frame wrapper takes the batched form:
+    one launch for the batch."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    _, xb = batched_problem
+    pk.reset_launch_counts()
+    out = torch.func.vmap(lambda s, l, u: pk.sample_patches(s, l, u, 4))(
+        xb["stack"], xb["lvl"], xb["uv"])
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["sample_patches_kernel"] == 1
+    assert torch.equal(out, pk.sample_patches_batched(
+        xb["stack"], xb["lvl"], xb["uv"], 4))

@@ -67,7 +67,9 @@ def _no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", ["frame_handler", "init_state",
                                    "camera", "texture", "reloc_demo",
                                    "load_euroc", "load_tum",
-                                   "native_feeder"])
+                                   "native_feeder", "init_batched_state",
+                                   "batched_track", "entry", "make_mesh",
+                                   "sharded_rank", "spawn_ranks"])
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
     """Without a card, an entry point called without `device` raises
     instead of running on the CPU."""
@@ -75,6 +77,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
     from android_svo_tpu_torch.data import euroc, native_feeder, synthetic
     from android_svo_tpu_torch.data import tum
     from android_svo_tpu_torch.tools import reloc_demo
+    from android_svo_tpu_torch import entry as entry_mod
+    from android_svo_tpu_torch.parallel import mesh, multi_seq
+    from android_svo_tpu_torch.tools import sharded_rank
     _no_cuda(monkeypatch)
     cpu_cam = synthetic.default_camera(64, 48, device="cpu")
     cfg = SVOConfig(loba_n_iter=0)
@@ -93,6 +98,25 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
             tum.load_tum(str(tmp_path))
         elif entry == "native_feeder":
             native_feeder.NativeFrameFeeder([str(tmp_path / "0.png")])
+        elif entry == "init_batched_state":
+            st.init_batched_state(cfg, 64, 48, 2)
+        elif entry == "batched_track":
+            # the state the batched step takes, as a caller would build it
+            multi_seq.make_batched_track(cfg, cpu_cam,
+                                         st.arena_dims(cfg, 64, 48))
+            multi_seq.init_batched_state(cfg, 64, 48, 2)
+        elif entry == "entry":
+            entry_mod.entry()
+        elif entry == "make_mesh":
+            mesh.make_mesh(2)
+        elif entry == "sharded_rank":
+            # the rank raises before it joins a group
+            sharded_rank.main(["ba", "0", "1", "tcp://127.0.0.1:1", "1",
+                               str(tmp_path / "in.npz"),
+                               str(tmp_path / "out.npz")])
+        elif entry == "spawn_ranks":
+            sharded_rank.spawn_ranks("ba", 1, 1, str(tmp_path / "in.npz"),
+                                     str(tmp_path))
         else:
             reloc_demo.run(frames=2, width=64, height=48, trace=None)
 
@@ -273,3 +297,26 @@ def test_dispatch_counts_counts_top_level_ops():
     assert dispatch_counts(lambda: torch.empty(3)) == (1, 0)
     assert dispatch_counts(
         lambda: torch.empty((3, 2, 4, 4)).unbind(0)) == (2, 0)
+
+
+def test_dispatch_counts_looks_through_custom_ops():
+    """A patch wrapper's custom op (`svo_torch::*`) is taken only inside
+    `torch.func.vmap`, and `dispatch_counts` looks through it: the ATen ops
+    its vmap rule dispatches count as the caller's own.  Outside vmap the
+    wrapper calls the op's body, and no custom op shows in the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    g = torch.Generator().manual_seed(0)
+    stack = torch.rand((2, 3, 40, 48), generator=g)
+    lvl = torch.zeros((2, 5), dtype=torch.int32)
+    uv = torch.rand((2, 5, 2), generator=g) * 10 + 8
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pk.sample_patches(stack[0], lvl[0], uv[0], 2)
+    assert not [e for e in prof.events()
+                if e.name.startswith("svo_torch::")]
+    n_batched, _ = dispatch_counts(
+        lambda: pk.sample_patches_batched(stack, lvl, uv, 2))
+    n_vmap, _ = dispatch_counts(lambda: torch.func.vmap(
+        lambda s, l, u: pk.sample_patches(s, l, u, 2))(stack, lvl, uv))
+    assert n_vmap >= n_batched > 1
