@@ -5,10 +5,10 @@ Same layout and function names as the JAX package (geometry/, ops/, core/,
 parallel/, data/, evals/, utils/), written as plain functions on tensors
 with dataclasses of tensors for state.  The kernels are CUDA C++ for Hopper
 (`csrc/*.cu`, built with nvcc on first CUDA use into one library and bound
-with ctypes): the four patch kernels of the tracking path
-(`csrc/patch_kernels.cu`, plain versions in `ops/patch_kernels.py`) and the
-gather probe (`csrc/gather_probe_kernels.cu`, `ops/gather_probe.py`); each
-plain version serves CPU tensors.
+with ctypes): the four patch kernels of the tracking path and the window
+dump (`csrc/patch_kernels.cu`, plain versions in `ops/patch_kernels.py`)
+and the gather probe (`csrc/gather_probe_kernels.cu`,
+`ops/gather_probe.py`); each plain version serves CPU tensors.
 
 Entry points (FrameHandler, make_track_frame, init_state, the renderer, the
 tools) run on the CUDA device unless the caller passes `device="cpu"`.

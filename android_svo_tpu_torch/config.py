@@ -131,3 +131,24 @@ class SVOConfig:
     def img_align_patch_size(self) -> int:
         return 2 * self.img_align_patch_halfsize
 
+    @classmethod
+    def android_defaults(cls) -> "SVOConfig":
+        """The reference's phone-tuned defaults (config.cpp:56-84)."""
+        return cls()
+
+    @classmethod
+    def upstream_defaults(cls) -> "SVOConfig":
+        """Upstream rpg_svo desktop defaults (ref config.cpp:26-54), copied
+        field for field from the JAX package.  Its grid_size of 30 is not a
+        multiple of 2**(n_pyr_levels - 1) = 4, which `ops/detect.py`
+        requires, so the detector refuses this preset in both packages."""
+        return cls(
+            grid_size=30,
+            map_scale=1.0,
+            reproj_thresh=2.0,
+            max_fts=120,
+            quality_max_drop_fts=40,
+            kfselect_mindist=0.12,
+            triang_min_corner_score=20.0,
+            max_n_kfs=10,
+        )

@@ -56,6 +56,13 @@ class KeyframeArena(_Replace):
     ftr_point: torch.Tensor    # (K, C) int32, -1 none
     ftr_valid: torch.Tensor    # (K, C) bool
 
+    @property
+    def T_kw(self) -> SE3:
+        return SE3(q=self.q_kw, t=self.t_kw)
+
+    def pose(self, k) -> SE3:
+        return SE3(q=self.q_kw[k], t=self.t_kw[k])
+
 
 @dataclass
 class PointArena(_Replace):

@@ -1,6 +1,6 @@
 // Patch kernels of the tracking path, CUDA C++ for Hopper (sm_90a).
 //
-// Four kernels, each the port of one Pallas TPU kernel of
+// Five kernels, each the port of one Pallas TPU kernel of
 // android_svo_tpu/ops/patch_pallas.py.  They read image planes out of the
 // padded pyramid stack (ops/pyramid.py layout: level l in the top-left
 // (H>>l, W>>l) corner of an (Hp, Wp) plane) through explicit strides, so a
@@ -618,6 +618,68 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// dump_windows_kernel — replaces _dump_pallas / _make_dump_kernel
+// (android_svo_tpu/ops/patch_pallas.py:667-696) and the origin arithmetic of
+// dump_windows (:720-731).
+// Bound: bytes.  Each feature's 32x64 float window (8 KB) is written once
+// and its pixels read once (6.3 MB out and at most 3.7 MB in at 768 features
+// on a 3x480x640 stack: about 3 us at 3.35 TB/s); there is no arithmetic to
+// speak of.  Design: one 256-thread block per feature, each warp copying
+// whole window rows (lane j takes columns j and j + 32), so a warp's loads
+// and stores are each one contiguous 128-byte run: the loads coalesce at any
+// window origin, without the TPU kernel's aligned load and rolls
+// (_load_window, patch_pallas.py:92-110), which exist for its (8, 128)
+// tiling.  The kernel does the wrapper's host work too: uv is read through
+// its strides with NaN and +-inf as 0, the origin is floor(uv) - (32, 16)
+// clamped to [0, W - 65] x [0, H - 33], the level is clamped to [0, L - 1],
+// and the window is cut at the origin clamped so it fits the plane (XLA's
+// dynamic_slice).  A dead row is written as zeros, as the TPU kernel zeroes
+// it before its pl.when(valid) copy.  The launcher takes planes of at least
+// 32 x 64 pixels.
+// ---------------------------------------------------------------------------
+constexpr int kDumpThreads = 256;
+
+// clip(floor(x) - offset, 0, room), with x finite (else 0) and clamped
+// before the cast so a huge coordinate stays defined
+__device__ __forceinline__ int window_origin(float x, int offset, int room) {
+  const float f = fminf(fmaxf(floorf(finite_or_zero(x)), -1e9f), 1e9f);
+  return min(max((int)f - offset, 0), room);
+}
+
+__global__ void __launch_bounds__(kDumpThreads) dump_windows_kernel(
+    const float* __restrict__ stack, long long s_l, long long s_r, int L,
+    int H, int W, const int* __restrict__ lvl, const float* __restrict__ uv,
+    long long s_un, long long s_uc, const unsigned char* __restrict__ valid,
+    float* __restrict__ out_win, int* __restrict__ out_org) {
+  const long long i = blockIdx.x;
+  const int ox = window_origin(uv[i * s_un], kWinCols / 2,
+                               W - (kWinCols + 1));
+  const int oy = window_origin(uv[i * s_un + s_uc], kWinRows / 2,
+                               H - (kWinRows + 1));
+  if (threadIdx.x == 0) {
+    out_org[2 * i] = ox;
+    out_org[2 * i + 1] = oy;
+  }
+  float* win = out_win + i * (kWinRows * kWinCols);
+  if (!valid[i]) {
+    float4* w4 = reinterpret_cast<float4*>(win);
+    for (int e = threadIdx.x; e < kWinRows * kWinCols / 4; e += kDumpThreads)
+      w4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  const int sx = min(max(ox, 0), W - kWinCols);
+  const int sy = min(max(oy, 0), H - kWinRows);
+  const float* src = stack + (long long)min(max(lvl[i], 0), L - 1) * s_l
+                   + (long long)sy * s_r + sx;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kWinRows; r += kDumpThreads / 32) {
+    const float* row = src + r * s_r;
+    win[r * kWinCols + lane] = __ldg(row + lane);
+    win[r * kWinCols + lane + 32] = __ldg(row + lane + 32);
+  }
+}
+
 template <int K>
 __global__ void align_iclk_kernel(const IclkArgs a) {
   iclk_feature<K, false>(a);
@@ -723,6 +785,20 @@ int launch_align_iclk(const float* stack, long long s_b, long long s_l,
                    valid, n, n_iter, half, 0, 0.0f, 0, 0.0f, out_uv,
                    out_conv, out_mean};
   return iclk_launch(false, a, stream);
+}
+
+int launch_dump_windows(const float* stack, long long s_l, long long s_r,
+                        int L, int H, int W, const int* lvl, const float* uv,
+                        long long s_un, long long s_uc,
+                        const unsigned char* valid, int n, float* out_win,
+                        int* out_org, void* stream) {
+  if (n <= 0) return 0;
+  if (L <= 0 || H < kWinRows || W < kWinCols) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dump_windows_kernel<<<n, kDumpThreads, 0, (cudaStream_t)stream>>>(
+      stack, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, out_win, out_org);
+  return (int)cudaGetLastError();
 }
 
 int launch_align_iclk_window(

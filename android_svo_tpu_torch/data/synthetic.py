@@ -108,3 +108,28 @@ def lookdown_pose(x: float, y: float, z: float = -3.0,
     dq = SO3.exp(torch.tensor(rot_xyz, dtype=torch.float32, device=dev))
     return base.compose(SE3(q=dq, t=torch.zeros(3, device=dev)))
 
+
+
+def make_trajectory(n_frames: int, radius: float = 0.4, height: float = -3.0,
+                    forward: float = 0.02, rot_amp: float = 0.02,
+                    device=None) -> list:
+    """Smooth sideways+forward sweep with small rotations: a list of SE3
+    camera-to-world poses (T_w_c) on `device` (the card unless the caller
+    asks for the CPU)."""
+    dev = resolve_device(device)
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1)
+        x = radius * math.sin(2 * math.pi * s * 0.75)
+        rot = (rot_amp * math.sin(2 * math.pi * s),
+               rot_amp * math.cos(2 * math.pi * s), 0.15 * rot_amp * i)
+        poses.append(lookdown_pose(x, forward * i, height, rot, device=dev))
+    return poses
+
+
+def true_depth(cam: PinholeCamera, T_w_c: SE3,
+               px: torch.Tensor) -> torch.Tensor:
+    """Ground-truth depth along the bearing of pixels px (N, 2): the
+    distance from the camera to the plane along each unit ray."""
+    d_w = T_w_c.rotate(cam.cam2world(px))
+    return -T_w_c.t[2] / d_w[..., 2]

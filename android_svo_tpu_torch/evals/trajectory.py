@@ -1,5 +1,6 @@
-"""Trajectory evaluation: Umeyama Sim(3) alignment + ATE — the port's
-own copy of `android_svo_tpu/evals/trajectory.py` (numpy, float64)."""
+"""Trajectory evaluation: Umeyama Sim(3) alignment, ATE and RPE — the
+port's own copy of `android_svo_tpu/evals/trajectory.py` (numpy,
+float64)."""
 
 from __future__ import annotations
 
@@ -37,3 +38,15 @@ def ate_rmse(est_positions, gt_positions, with_scale=True) -> float:
     err = aligned - np.asarray(gt_positions, np.float64)
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
 
+
+
+def rpe_stats(est_positions, gt_positions, delta: int = 1):
+    """Relative pose (translation drift) error over a frame gap, after
+    Sim(3) alignment: (mean, median) of ||d_est - d_gt||."""
+    s, R, t = umeyama_alignment(est_positions, gt_positions)
+    est = (s * (R @ np.asarray(est_positions, np.float64).T)).T + t
+    gt = np.asarray(gt_positions, np.float64)
+    de = est[delta:] - est[:-delta]
+    dg = gt[delta:] - gt[:-delta]
+    err = np.linalg.norm(de - dg, axis=1)
+    return float(err.mean()), float(np.median(err))

@@ -51,6 +51,10 @@ class PinholeCamera:
                    width=int(width), height=int(height),
                    distortion_free=all(k == 0.0 for k in ks))
 
+    @property
+    def has_distortion(self) -> bool:
+        return not self.distortion_free
+
     def errorMultiplier2(self) -> torch.Tensor:
         return self.fx
 
@@ -94,6 +98,20 @@ class PinholeCamera:
                            (px[..., 1] - self.cy) / self.fy], dim=-1)
         xyz = unproject2d(self.undistort(uvd))
         return xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+
+    def is_in_frame(self, px: torch.Tensor, boundary: float = 0.0,
+                    level: int = 0) -> torch.Tensor:
+        """Pixel inside the image at pyramid `level`, `boundary` px in (ref
+        abstract_camera.h isInFrame)."""
+        return _in_frame(px, self.width, self.height, boundary, level)
+
+
+def _in_frame(px, width: int, height: int, boundary: float, level: int):
+    scale = float(2 ** level)
+    w = width / scale
+    h = height / scale
+    return ((px[..., 0] >= boundary) & (px[..., 0] < w - boundary)
+            & (px[..., 1] >= boundary) & (px[..., 1] < h - boundary))
 
 
 @dataclass
@@ -155,8 +173,4 @@ class ATANCamera:
     def is_in_frame(self, px: torch.Tensor, boundary: float = 0.0,
                     level: int = 0) -> torch.Tensor:
         """Pixel inside the image at pyramid `level`, `boundary` px in."""
-        scale = float(2 ** level)
-        w = self.width / scale
-        h = self.height / scale
-        return ((px[..., 0] >= boundary) & (px[..., 0] < w - boundary)
-                & (px[..., 1] >= boundary) & (px[..., 1] < h - boundary))
+        return _in_frame(px, self.width, self.height, boundary, level)

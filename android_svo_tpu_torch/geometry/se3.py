@@ -10,8 +10,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.utils._pytree as _pytree
+
+from android_svo_tpu_torch import resolve_device
 
 _EPS2 = 1e-8  # squared-angle threshold below which Taylor branches engage
 
@@ -137,16 +140,42 @@ class SE3:
         return cls(q=q, t=t)
 
     @classmethod
+    def from_matrix(cls, m, device=None) -> "SE3":
+        """(...,4,4) or (...,3,4) homogeneous matrix -> SE3 (ref
+        SE3.h:81-99).  A tensor stays where it is; an array goes to
+        `device` (the card unless the caller asks for the CPU)."""
+        if not isinstance(m, torch.Tensor):
+            m = torch.tensor(np.asarray(m), device=resolve_device(device))
+        return cls(q=matrix_to_quat(m[..., :3, :3]), t=m[..., :3, 3])
+
+    @classmethod
     def from_rt(cls, rot: torch.Tensor, t: torch.Tensor) -> "SE3":
         return cls(q=matrix_to_quat(rot), t=t)
 
+    @property
+    def batch_shape(self):
+        return self.q.shape[:-1]
+
     def rotation_matrix(self) -> torch.Tensor:
         return quat_to_matrix(self.q)
+
+    def as_matrix(self) -> torch.Tensor:
+        """(...,4,4) homogeneous matrix (ref SE3.h getMatrix)."""
+        top = torch.cat([self.rotation_matrix(), self.t[..., :, None]], dim=-1)
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.t.dtype,
+                              device=self.t.device)
+        return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))],
+                         dim=-2)
 
     def compose(self, other: "SE3") -> "SE3":
         """self @ other (apply other first)."""
         return SE3(q=quat_normalize(quat_mul(self.q, other.q)),
                    t=quat_rotate(self.q, other.t) + self.t)
+
+    def __matmul__(self, other):
+        if isinstance(other, SE3):
+            return self.compose(other)
+        return self.apply(other)
 
     def inverse(self) -> "SE3":
         qi = quat_conj(self.q)
@@ -190,6 +219,16 @@ class SE3:
 
     def normalize(self) -> "SE3":
         return SE3(q=quat_normalize(self.q), t=self.t)
+
+    def __getitem__(self, idx) -> "SE3":
+        return SE3(q=self.q[idx], t=self.t[idx])
+
+
+def distance(a: SE3, b: SE3):
+    """(translation distance, rotation angle) between two poses."""
+    rel = a.inverse().compose(b)
+    return (torch.linalg.norm(rel.t, dim=-1),
+            torch.linalg.norm(SO3.log(rel.q), dim=-1))
 
 
 # a pytree node, so poses pass through torch.func.vmap as (q, t)

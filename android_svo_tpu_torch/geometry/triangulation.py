@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from android_svo_tpu_torch.geometry.se3 import SE3
+from android_svo_tpu_torch.geometry.se3 import SE3, hat
 
 
 def triangulate_midpoint(T_w_ref: SE3, T_w_cur: SE3,
@@ -78,6 +78,11 @@ def sampson_error(E: torch.Tensor, f_ref: torch.Tensor,
     den = (Ef1[..., 0] ** 2 + Ef1[..., 1] ** 2
            + Etf2[..., 0] ** 2 + Etf2[..., 1] ** 2)
     return num * num / torch.clamp(den, min=1e-12)
+
+
+def essential_from_pose(T_cur_ref: SE3) -> torch.Tensor:
+    """E = [t]_x R mapping f_ref bearings to epipolar lines in cur."""
+    return hat(T_cur_ref.t) @ T_cur_ref.rotation_matrix()
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,26 @@ def extract_patches(img: torch.Tensor, centers: torch.Tensor,
     return bilinear_sample(img, coords).reshape(centers.shape[0], p, p)
 
 
+def extract_patches_with_grad(img: torch.Tensor, centers: torch.Tensor,
+                              halfsize: int):
+    """Patches plus central-difference image gradients at the same sample
+    positions, 0.5 * (I(x+1) - I(x-1)) as the reference takes them
+    (sparse_img_align.cpp:150-170): returns (patch, dx, dy), each
+    (N, P, P)."""
+    p = 2 * halfsize
+    n = centers.shape[0]
+    offs = patch_offsets(halfsize, centers.dtype, centers.device)
+    coords = centers[:, None, :] + offs[None, :, :]
+    ex = torch.tensor([1.0, 0.0], dtype=centers.dtype, device=centers.device)
+    ey = torch.tensor([0.0, 1.0], dtype=centers.dtype, device=centers.device)
+    val = bilinear_sample(img, coords)
+    dx = 0.5 * (bilinear_sample(img, coords + ex)
+                - bilinear_sample(img, coords - ex))
+    dy = 0.5 * (bilinear_sample(img, coords + ey)
+                - bilinear_sample(img, coords - ey))
+    return (val.reshape(n, p, p), dx.reshape(n, p, p), dy.reshape(n, p, p))
+
+
 def bilinear_sample_stack(imgs: torch.Tensor, idx: torch.Tensor,
                           uv: torch.Tensor) -> torch.Tensor:
     """Sample a stack (K, H, W) at per-item image index idx (N,) and coords

@@ -1,7 +1,7 @@
 """Scattered bilinear patch work — the port of
 `android_svo_tpu/ops/patch_pallas.py`.
 
-Four hand-written CUDA kernels (`csrc/patch_kernels.cu`), each with its
+Five hand-written CUDA kernels (`csrc/patch_kernels.cu`), each with its
 plain PyTorch version beside it:
 
   kernel                      replaces (patch_pallas.py)          plain version
@@ -13,11 +13,18 @@ plain PyTorch version beside it:
   align_iclk_window_kernel    _dump_pallas + the rest of          dump_windows_plain +
                               align_iclk_mxu (Hessian, one-hot    _align_mxu_plain
                               einsum ICLK, gates)
+  dump_windows_kernel         _dump_pallas + the rest of          dump_windows_plain
+                              dump_windows (origin, nan_to_num)
 
-Dispatch: a wrapper launches the kernel when `use_pallas` is true and its
-tensors lie on a CUDA device, and takes the plain version only for CPU
-tensors (or when `use_pallas` is false).  On a CUDA tensor it launches or
-raises; there is no fallback.  Every launch adds one to `LAUNCHES[name]`.
+The window ICLK reads its window in place; `dump_windows_kernel` writes the
+windows out and runs only through the public `dump_windows`, which no
+tracking path calls.
+
+Dispatch: a wrapper launches the kernel when `use_pallas` is true or None
+(the JAX package's "auto", `cfg_use_pallas`) and its tensors lie on a CUDA
+device, and takes the plain version only for CPU tensors (or when
+`use_pallas` is false).  On a CUDA tensor it launches or raises; there is no
+fallback.  Every launch adds one to `LAUNCHES[name]`.
 No wrapper converts anything on CUDA: each makes its output allocations and
 one launch, and raises on inputs of another type or device (at the
 tracking path's sizes the kernels take microseconds on an NVIDIA H100 80GB
@@ -61,6 +68,7 @@ LAUNCHES = {
     "epi_scan_kernel": 0,
     "align_iclk_kernel": 0,
     "align_iclk_window_kernel": 0,
+    "dump_windows_kernel": 0,
 }
 
 
@@ -69,8 +77,21 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def cfg_use_pallas(cfg) -> bool | None:
+    """Map the config knob to the dispatch argument, as the JAX package
+    does: True by config is "auto" (None: the kernels for CUDA tensors, the
+    plain versions for CPU tensors), False forces the plain versions."""
+    return None if cfg.use_pallas else False
+
+
+def _pallas(use_pallas) -> bool:
+    """The dispatch argument with None ("auto") read as True: the tensors'
+    device then decides."""
+    return True if use_pallas is None else bool(use_pallas)
+
+
 def _on_card(t: torch.Tensor, use_pallas) -> bool:
-    return bool(use_pallas) and t.is_cuda
+    return _pallas(use_pallas) and t.is_cuda
 
 
 def _call(op, body, *args):
@@ -262,7 +283,7 @@ def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
     the CPU the plain version computes every slot from uv as given.  Under
     `torch.func.vmap` the batch takes one launch (`sample_patches_batched`)."""
     out = _call(_sample_op, _sample_body, stack, lvl, uv, half, grad, valid,
-                bool(use_pallas))
+                _pallas(use_pallas))
     return out.unbind(0) if grad else out
 
 
@@ -444,7 +465,7 @@ def epi_scan(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
     w = wp if w is None else w
     return _call(_scan_op, _scan_body, stack, lvl, uv_a, uv_b, ref_patch,
                  int(n_steps_max), int(half), n_steps_each, int(h), int(w),
-                 bool(use_pallas))
+                 _pallas(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -657,7 +678,7 @@ def align_iclk(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     w = wp if w is None else w
     return _call(_align_op, _align_body, stack, lvl, ref_patch, ref_dx,
                  ref_dy, init_uv, valid, int(n_iter), int(h), int(w),
-                 bool(use_pallas))
+                 _pallas(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -675,10 +696,12 @@ def _window_origin(stack, uv):
 
 def dump_windows_plain(stack, lvl, uv, valid=None, plane=None):
     """One (DUMP_WR, DUMP_WC) window per feature around integer(uv), plus the
-    window origin (xi, yi) — port of dump_windows' fallback path.  The
-    window kernel reads this window's pixels in place, through the window's
-    own index clamps, instead of writing it out.  `plane` (default: the
-    clamped level) is the stack plane each window is cut from."""
+    window origin (xi, yi) — plain version of dump_windows_kernel, the port
+    of dump_windows' fallback path (every row copied, `valid` unused).  The
+    window ICLK kernel reads this window's pixels in place, through the
+    window's own index clamps, instead of writing it out.  `plane`
+    (default: the clamped level) is the stack plane each window is cut
+    from."""
     L, hp, wp = stack.shape
     uv = _nan0(uv)
     org = _window_origin(stack, uv)
@@ -693,6 +716,54 @@ def dump_windows_plain(stack, lvl, uv, valid=None, plane=None):
     cols = (sx[:, None] + cc[None, :])[:, None, :]
     wins = stack[lvl_c[:, None, None], rows, cols]
     return wins, org
+
+
+def _dump_kernel(stack, lvl, uv, valid):
+    """The whole of dump_windows in one launch (the kernel zeroes
+    non-finite uv, computes and clamps the origin, clamps the level and
+    writes zeros for dead rows); the host makes the two allocations and
+    converts nothing: inputs of another type, shape or device raise."""
+    if stack.dim() != 3:
+        raise ValueError(f"stack must be (L, H, W), got {tuple(stack.shape)}")
+    ptr, _, s_l, s_r, L, H, W = _stack_args(stack)
+    if H < DUMP_WR or W < DUMP_WC:
+        raise ValueError(f"dump_windows_kernel takes planes of at least "
+                         f"{DUMP_WR}x{DUMP_WC}, got {H}x{W}")
+    dev = stack.get_device()
+    n = uv.shape[0]
+    check(uv, "uv", torch.float32, (n, 2), dev)
+    check(lvl, "lvl", torch.int32, (n,), dev)
+    contiguous(lvl, "lvl")
+    check(valid, "valid", torch.bool, (n,), dev)
+    contiguous(valid, "valid")
+    wins = torch.empty((n, DUMP_WR, DUMP_WC), dtype=torch.float32,
+                       device=stack.device)
+    org = torch.empty((n, 2), dtype=torch.int32, device=stack.device)
+    if n:
+        su = uv.stride()
+        launch(LAUNCHES, "dump_windows_kernel", "launch_dump_windows", ptr,
+               s_l, s_r, L, H, W, lvl.data_ptr(), uv.data_ptr(), su[0], su[1],
+               valid.data_ptr(), n, wins.data_ptr(), org.data_ptr(),
+               stream(dev))
+    return wins, org
+
+
+def dump_windows(stack, lvl, uv, valid, use_pallas=None):
+    """One (DUMP_WR, DUMP_WC) = (32, 64) window per feature around
+    integer(uv) at its level, plus the window origin (xi, yi) in
+    level-pixel coordinates: floor(uv) - (32, 16) with NaN and +-inf read
+    as 0, clamped to [0, Wp - 65] x [0, Hp - 33].  Returns (wins (N, 32,
+    64) float32, org (N, 2) int32).
+
+    On CUDA one launch of dump_windows_kernel computes all of it: the stack
+    is (L, Hp, Wp) float32 with contiguous rows (any plane and row
+    strides), uv float32 (any strides), `lvl` int32 and `valid` bool, else
+    it raises; a dead row's window is zeros, as the TPU kernel writes it.
+    On the CPU (or with use_pallas=False) the plain version copies every
+    row's window, as the JAX fallback does: compare valid rows."""
+    if _on_card(stack, use_pallas):
+        return _dump_kernel(stack, lvl, uv, valid)
+    return dump_windows_plain(stack, lvl, uv, valid)
 
 
 def _onehot_patch(wins, u, v, p: int):
@@ -903,7 +974,7 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     w = wp if w is None else w
     return _call(
         _align_mxu_op, _align_mxu_body, stack, lvl, ref_patch, ref_dx, ref_dy,
-        init_uv, valid, int(n_iter), int(h), int(w), bool(use_pallas),
+        init_uv, valid, int(n_iter), int(h), int(w), _pallas(use_pallas),
         None if zmssd_factor is None else float(zmssd_factor),
         None if min_patch_std is None else float(min_patch_std))
 

@@ -55,3 +55,25 @@ def stack_from_pyramid(pyr: Sequence[torch.Tensor]) -> torch.Tensor:
 def build_stack(img: torch.Tensor, n_levels: int) -> torch.Tensor:
     return stack_from_pyramid(build_pyramid(img, n_levels))
 
+
+
+def level_view(stack: torch.Tensor, level: int, h: int,
+               w: int) -> torch.Tensor:
+    """The true (h>>l, w>>l) image of a static level inside a padded stack
+    (a view); `h`, `w` are the true level-0 dims."""
+    return stack[..., level, : h >> level, : w >> level]
+
+
+def stack_levels(stack: torch.Tensor, h: int, w: int,
+                 n_levels: int | None = None) -> tuple:
+    """Unpack a padded stack into the per-level tuple of views."""
+    n = n_levels if n_levels is not None else stack.shape[-3]
+    return tuple(level_view(stack, l, h, w) for l in range(n))
+
+
+def pyramid_shapes(h: int, w: int, n_levels: int) -> list:
+    shapes = [(h, w)]
+    for _ in range(n_levels - 1):
+        h, w = h // 2, w // 2
+        shapes.append((h, w))
+    return shapes

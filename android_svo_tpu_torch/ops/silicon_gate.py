@@ -31,6 +31,11 @@ class GateReport:
     detail: dict = field(default_factory=dict)
     max_abs_err: dict = field(default_factory=dict)   # kernel -> max |d|
 
+    def as_dict(self):
+        return {"ok": self.ok, "failures": self.failures,
+                "detail": {k: round(float(v), 6)
+                           for k, v in self.detail.items()}}
+
 
 def _gate_stack(h: int, w: int, n_levels: int = 5, device=None,
                 shift: float = 0.0):
@@ -80,12 +85,18 @@ def gate_inputs(n: int = 768, h: int = 480, w: int = 640, seed: int = 0,
     sub_uv = torch.stack([12 + u01[:, 0] * ((w >> 2) - 24),
                           12 + u01[:, 1] * ((h >> 2) - 24)], dim=-1)
     zeros_lvl = torch.zeros((n,), dtype=torch.int32, device=dev)
+    # the window dump's centres: the ICLK starts, some of them non-finite
+    dump_uv = uv + off
+    dump_uv[::29, 0] = float("nan")
+    dump_uv[5::37, 1] = float("inf")
+    dump_uv[11::41] = float("-inf")
     return {
         "stack": stack, "lvl": lvl, "uv": uv, "valid": valid,
         "valid_mixed": valid_mixed, "ref": ref,
         "rdx": rdx, "rdy": rdy, "off": off, "init": uv + off, "seg": seg,
         "uv_a": uv - seg, "uv_b": uv + seg, "nsteps": nsteps,
         "h": h, "w": w, "sub": sub, "sub_uv": sub_uv, "zeros_lvl": zeros_lvl,
+        "dump_uv": dump_uv,
     }
 
 
@@ -101,7 +112,9 @@ def kernel_calls(x: dict) -> dict:
     the 1D alignment's per-iteration sampler (8x8 patches at mixed levels
     of the 3-level stack, with a valid mask; also `_zmssd_accept`'s call)
     and `align_iclk_window_kernel/ungated` the window ICLK with both
-    appearance gates off (the edgelet configuration's direct match)."""
+    appearance gates off (the edgelet configuration's direct match).
+    `dump_windows_kernel` is the public `dump_windows` (no tracking path
+    calls it) on the mixed valid mask and the partly non-finite starts."""
     return {
         "sample_patches_kernel": lambda up: pk.sample_patches(
             x["sub"], x["zeros_lvl"], x["sub_uv"], 2, valid=x["valid"],
@@ -123,6 +136,9 @@ def kernel_calls(x: dict) -> dict:
         "align_iclk_window_kernel/ungated": lambda up: pk.align_iclk_mxu(
             x["stack"], x["lvl"], x["ref"], x["rdx"], x["rdy"],
             x["init"], x["valid"], 10, h=x["h"], w=x["w"], use_pallas=up),
+        "dump_windows_kernel": lambda up: pk.dump_windows(
+            x["stack"], x["lvl"], x["dump_uv"], x["valid_mixed"],
+            use_pallas=up),
     }
 
 
@@ -147,9 +163,11 @@ def run_gate(x: dict, calls: dict | None = None) -> GateReport:
     agreement >= 0.95 and kernel convergences >= 0.8 x plain; align uv max
     0.05 px where both converge; window ICLK (gated and ungated) uv p90 <=
     0.05 px and max <= 0.5 px; median converged error to the true uv <=
-    0.5 px.  `calls` (default `kernel_calls(x)`, and the 8x8 sampler with
+    0.5 px; the window dump (a copy) bit for bit on valid rows, origins
+    equal, dead rows zero (the plain version, like the JAX fallback, copies
+    them too).  `calls` (default `kernel_calls(x)`, and the 8x8 sampler with
     gradients on x) may give every form as another function of the same
-    features, flattened: the batched gate's."""
+    features, flattened: the batched gate's, which has no dump."""
     failures: list[str] = []
     detail: dict[str, float] = {}
     errs: dict[str, float] = {}
@@ -232,6 +250,23 @@ def run_gate(x: dict, calls: dict | None = None) -> GateReport:
                 failures.append(f"{short}: median converged error {med:.3f}")
         else:
             failures.append(f"{short}: kernel converged nothing")
+
+    name = "dump_windows_kernel"
+    if name in calls:
+        (wk, ok_), (wp, op) = calls[name](True), calls[name](False)
+        live = _np(x["valid_mixed"]).astype(bool)
+        check("dump.windows", name, wk, wp, 0.0, mask=live)
+        org_equal = bool(torch.equal(ok_.cpu(), op.cpu()))
+        dead_zero = bool((wk[~x["valid_mixed"]] == 0).all())
+        detail.update({"dump.org_equal": org_equal,
+                       "dump.dead_rows_zero": dead_zero,
+                       "dump.n_dead": int((~live).sum()),
+                       "dump.n_nonfinite": int(
+                           (~torch.isfinite(x["dump_uv"])).any(-1).sum())})
+        if not org_equal:
+            failures.append("dump: window origins differ")
+        if not dead_zero:
+            failures.append("dump: a dead row's window is not zeros")
     return GateReport(ok=not failures, failures=failures, detail=detail,
                       max_abs_err=errs)
 

@@ -13,13 +13,16 @@ every phase passed):
                pyramid), with the bounds of the JAX package's kernel gate,
                in every form the configurations give it (also the 1D
                alignment's 8x8 sampler at mixed levels with a valid mask,
-               and the window ICLK with its gates off);
+               and the window ICLK with its gates off), and the window dump
+               (dump_windows_kernel, 768 windows on the 3-level stack with
+               a mixed valid mask and some non-finite centres: valid rows
+               bit for bit, origins equal, dead rows zero);
                times each kernel, its plain version and (where one exists) a
                library call with CUDA events, and computes its bound; counts
                the ATen ops and device activities one call of each kernel's
                wrapper dispatches (at most 4 for the sampler, 3 for the
-               other patch kernels, 1 for the probe; exactly 1 device
-               activity).
+               other patch kernels and the dump, 1 for the probe; exactly 1
+               device activity).
   3b. probe  — probe_patches_kernel variants A-D against their plain version
                (<= 1e-5; the kernel is bit-exact, and the line says whether
                it was) and variant A against interp.extract_patches
@@ -64,7 +67,8 @@ every phase passed):
                calls and host time of align1d_stack per frame.
   9. dataset — the dataset path at EuRoC MH_01 cam0's geometry (752x480,
                radtan distortion): (a) the patch kernels' gate at 752x480
-               (level 0 padded to 768 columns, level 4 47 wide); (b) the
+               (level 0 padded to 768 columns, level 4 47 wide; the dump
+               too); (b) the
                148-frame orbit rendered on the card through that camera,
                quantised to uint8 and written as an ASL tree (stdlib PNGs,
                data.csv at 20 Hz, sensor.yaml, ground truth); (c) load_euroc
@@ -108,10 +112,25 @@ every phase passed):
                4 sequences from a checkpoint of 10b's stacked state, 3
                steps: within 1e-4 of the unsharded batched step, equal
                result codes.
+ 11. surface — the public names the last slice added, on the card: (a)
+               interp.extract_patches_with_grad on one 480x640 level at 768
+               centres against sample_patches_kernel's gradient form on a
+               one-level stack (<= 0.02 where the patch and one pixel
+               around it lie inside); (b) dump_windows at the detector's
+               features of the gate frame against its plain version; (c)
+               feature_align.align1d on the card against its CPU run
+               (converged flags equal, uv within 1e-4, on the 160x120
+               level); (d) SE3.from_matrix(as_matrix()) round trip (1e-5);
+               (e) rpe_stats of phase 9's trajectory beside its ATE; (f)
+               after enable_compilation_cache(), cuda_build.build() returns
+               the built library without starting nvcc.  Both kernels must
+               launch.
 Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
-plain run) runs with the launch counts set to 0 just before it and read
-just after.
-Prints a `{"kernels": [...]}` line (all five kernels) and ends with one JSON
+plain run, 11) runs with the launch counts set to 0 just before it and read
+just after.  The tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every
+patch kernel but dump_windows_kernel, which only the public dump_windows
+runs (8b also not align_iclk_kernel); there its count must stay 0.
+Prints a `{"kernels": [...]}` line (all six kernels) and ends with one JSON
 line `{"ok": true, "device": {...}}`.
 """
 
@@ -141,12 +160,19 @@ KERNEL_META = {
     "align_iclk_window_kernel": (
         "android_svo_tpu/ops/patch_pallas.py:692 (_dump_pallas) + "
         "android_svo_tpu/ops/patch_pallas.py:779 (align_iclk_mxu ICLK)"),
+    "dump_windows_kernel": (
+        "android_svo_tpu/ops/patch_pallas.py:692 (_dump_pallas) through "
+        "android_svo_tpu/ops/patch_pallas.py:720 (dump_windows)"),
 }
 # the README's slice of the port that made each kernel what it is now
 REDESIGNED_IN = {"sample_patches_kernel": "slice 3",
                  "align_iclk_window_kernel": "slice 3",
                  "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 4",
-                 "probe_patches_kernel": "slice 5"}
+                 "probe_patches_kernel": "slice 5",
+                 "dump_windows_kernel": "slice 9"}
+# the window dump runs only through the public dump_windows: no tracking
+# path launches it
+DUMP = "dump_windows_kernel"
 PROBE_REPLACES = (
     "scripts/probe_pallas_patch.py:26 (_kernel), "
     "scripts/microbench_gather.py:133 (patch_kernel), "
@@ -187,6 +213,16 @@ class CheckFailed(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise CheckFailed(msg)
+
+
+def require_path_launches(launches, what, absent=()):
+    """A tracking path's launch counts: every patch kernel launched but
+    those in `absent` and the window dump, which must not launch."""
+    for name, cnt in launches.items():
+        if name == DUMP or name in absent:
+            require(cnt == 0, f"{name} launched on the {what} path")
+        else:
+            require(cnt > 0, f"{name} was not launched on the {what} path")
 
 
 def log(msg):
@@ -282,6 +318,22 @@ def kernel_bounds(x, pk):
             out[name + "/ungated"] = bound(foot + ins + outs, flops)
             flops += n * 64 * 9
         out[name] = bound(foot + ins + outs, flops)
+    # dump_windows: the distinct pixels of the valid rows' windows read
+    # once; every row's window (zeros for a dead row) and origin written
+    # once; lvl, uv and valid read once.  No arithmetic to count.
+    _, org = pk.dump_windows_plain(stack, x["lvl"], x["dump_uv"])
+    live = x["valid_mixed"]
+    sx = org[live, 0].long().clamp(0, wp - pk.DUMP_WC)
+    sy = org[live, 1].long().clamp(0, hp - pk.DUMP_WR)
+    lv = x["lvl"][live].long().clamp(0, L - 1)
+    rows = sy[:, None, None] + torch.arange(pk.DUMP_WR, device=k.device)[
+        None, :, None]
+    cols = sx[:, None, None] + torch.arange(pk.DUMP_WC, device=k.device)[
+        None, None, :]
+    seen = torch.zeros(L * hp * wp, dtype=torch.bool, device=k.device)
+    seen[((lv[:, None, None] * hp + rows) * wp + cols).reshape(-1)] = True
+    out[DUMP] = bound(int(seen.sum()) * 4 + n * (4 + 8 + 1)
+                      + n * (pk.DUMP_WR * pk.DUMP_WC * 4 + 8), 0)
     return out
 
 
@@ -740,8 +792,7 @@ def dataset_phase(dev, label, workdir):
             "dataset path did not reach DEFAULT")
     require(n_fail == 0, f"dataset path: {n_fail} tracking failures")
     require(n_ba >= 1, "dataset path never ran local BA")
-    for name, cnt in launches.items():
-        require(cnt > 0, f"{name} was not launched on the dataset path")
+    require_path_launches(launches, "dataset")
     require(math.isfinite(ate) and ate <= 0.02,
             f"dataset path ATE {ate} > 0.02")
     # every decoded frame, kept to the end: exact (decode, and no pinned
@@ -793,7 +844,7 @@ def dataset_phase(dev, label, workdir):
         require(drawn or not ahead, f"frame {i}: the cube is in front of "
                 "the camera but no face colour was drawn")
     return {"card": label, "frames": N_ORBIT, "resolution": [w, h],
-            "ate": ate, "keyframes": len(kf_ms), "keyframes_live": n_kf,
+            "traj": (np.array(est), np.array(gt)), "ate": ate, "keyframes": len(kf_ms), "keyframes_live": n_kf,
             "local_ba_runs": n_ba, "tracked": n_tracked,
             "median_ms": statistics.median(track_ms),
             "median_kf_ms": statistics.median(kf_ms) if kf_ms else None,
@@ -1024,8 +1075,7 @@ def batched_phase(dev, label, workdir):
             f"batched ATE over 0.02: {ates}")
     require(mixed >= 1, "no step where some but not all sequences took a "
             "keyframe")
-    for name, cnt in launches_b.items():
-        require(cnt > 0, f"{name} was not launched on the batched path")
+    require_path_launches(launches_b, "batched")
 
     # the single step of each sequence over the first N_SINGLE frames
     track = pipeline.make_track_frame(cfg, cam, dims)
@@ -1240,6 +1290,138 @@ def batched_phase(dev, label, workdir):
     return res
 
 
+def surface_phase(dev, label, x, traj):
+    """Phase 11: the public names of the last slice on the card, on phase
+    3's 640x480 gate frame.  Returns its numbers and launches; raises
+    CheckFailed on any check."""
+    import torch
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.evals.trajectory import ate_rmse, rpe_stats
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import cuda_build, detect, feature_align
+    from android_svo_tpu_torch.ops import interp, pyramid
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.utils.cache import enable_compilation_cache
+
+    t_phase = time.perf_counter()
+    h, w = x["h"], x["w"]
+    n = 768
+    gen = torch.Generator().manual_seed(11)
+    img = pyramid.level_view(x["stack"], 0, h, w)
+    uv = (torch.rand((n, 2), generator=gen)
+          * torch.tensor([w - 1.0, h - 1.0])).to(dev)
+    zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cfg = SVOConfig()
+    feats = detect.detect_features(pyramid.stack_levels(x["stack"], h, w),
+                                   None, cfg)
+    lvl_f = feats["level"].to(torch.int32)
+    uv_f = feats["px"] / (2.0 ** lvl_f.float())[:, None]
+    live = feats["valid"]
+    torch.cuda.synchronize()
+
+    pk.reset_launch_counts()
+    # a. extract_patches_with_grad against the sampler's gradient form
+    ref = interp.extract_patches_with_grad(img, uv, 4)
+    ker = pk.sample_patches(img[None], zeros, uv, 4, grad=True)
+    # b. the window dump at the detector's features
+    wins, org = pk.dump_windows(x["stack"], lvl_f, uv_f, live)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    log(f"launches on the surface path: {json.dumps(launches)}")
+    for name in ("sample_patches_kernel", DUMP):
+        require(launches[name] > 0,
+                f"{name} was not launched on the surface path")
+    inside = interp.in_bounds(uv, h, w, 5)
+    d_grad = max(float((a - b)[inside].abs().max()) for a, b in zip(ref, ker))
+    wins_p, org_p = pk.dump_windows(x["stack"], lvl_f, uv_f, live,
+                                    use_pallas=False)
+    dump_ok = (torch.equal(org, org_p) and torch.equal(wins[live],
+                                                       wins_p[live])
+               and not bool(wins[~live].any()))
+    log(f"surface [{label}]: extract_patches_with_grad vs "
+        f"sample_patches_kernel (grad) max |d| {d_grad:.2e} on "
+        f"{int(inside.sum())}/{n} inside (limit 0.02); dump_windows at "
+        f"{int(live.sum())}/{live.numel()} detected features: origins and "
+        f"live windows equal to the plain version, dead rows zero {dump_ok}")
+    require(d_grad <= 0.02, f"extract_patches_with_grad vs the sampler "
+            f"kernel: {d_grad} > 0.02")
+    require(dump_ok, "dump_windows at the detected features differs from "
+            "its plain version")
+
+    # c. align1d on the card against its CPU run, on the 160x120 level
+    im2 = pyramid.level_view(x["stack"], 2, h, w)
+    h2, w2 = im2.shape
+    c = (torch.rand((n, 2), generator=gen)
+         * torch.tensor([w2 - 24.0, h2 - 24.0]) + 12.0)
+    ang = torch.rand(n, generator=gen) * (2 * math.pi)
+    direc = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    init = c + direc * (torch.rand((n, 1), generator=gen) * 3.0 - 1.5)
+    valid = torch.rand(n, generator=gen) < 0.9
+    im2_cpu = im2.cpu()
+    patches = interp.extract_patches_with_grad(im2_cpu, c, 4)
+    args = (*patches, direc, init, valid)
+    u_c, c_c, _ = feature_align.align1d(im2_cpu, *args, 10)
+    u_g, c_g, _ = feature_align.align1d(im2, *(a.to(dev) for a in args), 10)
+    d_a1d = float((u_g.cpu() - u_c).abs().max())
+    same_flags = torch.equal(c_g.cpu(), c_c)
+    log(f"surface [{label}]: align1d on the card vs its CPU run at "
+        f"{w2}x{h2}, {n} features: uv max |d| {d_a1d:.2e} (limit 1e-4), "
+        f"converged flags equal {same_flags} ({int(c_c.sum())} converged)")
+    require(same_flags, "align1d: converged flags differ from the CPU run")
+    require(d_a1d <= 1e-4, f"align1d: uv differs from the CPU run by "
+            f"{d_a1d} > 1e-4")
+
+    # d. SE3.from_matrix(as_matrix()) on the card
+    xi = torch.randn((256, 6), generator=gen) * torch.tensor(
+        [1.0, 1.0, 1.0, 0.8, 0.8, 0.8])
+    T = SE3.exp(xi.to(dev))
+    T2 = SE3.from_matrix(T.as_matrix())
+    d_q = float(torch.minimum((T2.q - T.q).abs().amax(-1),
+                              (T2.q + T.q).abs().amax(-1)).max())
+    d_t = float((T2.t - T.t).abs().max())
+    d_m = float((T2.as_matrix() - T.as_matrix()).abs().max())
+    log(f"surface [{label}]: SE3.from_matrix(as_matrix()) on the card, 256 "
+        f"poses: q max |d| {d_q:.2e} (up to sign), t {d_t:.2e}, matrix "
+        f"{d_m:.2e} (limit 1e-5)")
+    require(T2.q.device.type == "cuda", "SE3.from_matrix left the card")
+    require(max(d_q, d_t, d_m) <= 1e-5, f"SE3 round trip differs by "
+            f"{max(d_q, d_t, d_m)} > 1e-5")
+
+    # e. RPE of phase 9's trajectory, beside its ATE
+    est, gt = traj
+    rpe_mean, rpe_median = rpe_stats(est, gt)
+    ate = ate_rmse(est, gt)
+    log(f"surface [{label}]: phase 9 trajectory ({len(est)} frames): ATE "
+        f"{ate:.6f}, RPE (1 frame) mean {rpe_mean:.6f} median "
+        f"{rpe_median:.6f}")
+    require(math.isfinite(rpe_mean) and math.isfinite(rpe_median),
+            "rpe_stats is not finite")
+
+    # f. the kernel cache: a later build finds the library, starts no nvcc
+    lib = cuda_build.build()
+    enable_compilation_cache()
+    popen = cuda_build.subprocess.Popen
+
+    def no_nvcc(*a, **kw):
+        raise CheckFailed(f"build() started {a[0][:1]} with the library "
+                          "already built")
+
+    cuda_build.subprocess.Popen = no_nvcc
+    try:
+        again = cuda_build.build()
+    finally:
+        cuda_build.subprocess.Popen = popen
+    log(f"surface: enable_compilation_cache() -> build() returned {again} "
+        "without starting nvcc")
+    require(again == lib, f"build() returned {again}, not {lib}")
+    return {"card": label, "launches": launches, "grad_max_abs_d": d_grad,
+            "dump_equal": dump_ok, "align1d_uv_max_abs_d": d_a1d,
+            "se3_roundtrip_max_abs_d": max(d_q, d_t, d_m),
+            "ate_phase9": ate, "rpe_mean": rpe_mean,
+            "rpe_median": rpe_median,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -1328,6 +1510,8 @@ def main() -> int:
         "probe_patches_kernel": [
             ("variant A, N=2048", 1,
              lambda: gp.probe_patches(pimg, puv, "A"))],
+        DUMP: [("768 windows, mixed valid, non-finite centres", 3,
+                lambda: calls[DUMP](True))],
     }
     host_ops = {}
     for name, cases in dispatch.items():
@@ -1460,6 +1644,7 @@ def main() -> int:
     imgs = [synthetic.render(tex, cam, p) for p in poses]
     torch.cuda.synchronize()
 
+    gate_launches = dict(pk.LAUNCHES)      # phase 3's gate, dispatch, timing
     pk.reset_launch_counts()
     run_k = run_sequence(cfg, cam, imgs, poses, dev)
     launches = dict(pk.LAUNCHES)
@@ -1474,8 +1659,7 @@ def main() -> int:
     require(run_k["n_kf"] >= 1, "no keyframe inserted after bootstrap")
     require(math.isfinite(run_k["ate"]) and run_k["ate"] <= 0.02,
             f"ATE {run_k['ate']} > 0.02")
-    for name, cnt in launches.items():
-        require(cnt > 0, f"{name} was not launched on the main path")
+    require_path_launches(launches, "main")
 
     # ---- 4b. where a tracking frame's time goes (profiled, steady state) --
     warm = fh.FrameHandler(cam, cfg, device=dev)
@@ -1524,8 +1708,7 @@ def main() -> int:
     require(run_d["n_local_ba"] >= 1, "default path never ran local BA")
     require(math.isfinite(run_d["ate"]) and run_d["ate"] <= 0.02,
             f"default path ATE {run_d['ate']} > 0.02")
-    for name, cnt in launches_d.items():
-        require(cnt > 0, f"{name} was not launched on the default path")
+    require_path_launches(launches_d, "default")
     handler_d = run_d.pop("handler")
     ba_prof = profile_call(lambda: handler_d._run_local_ba(handler_d.vo))
     ba_prof["card"] = label
@@ -1597,8 +1780,7 @@ def main() -> int:
     require(rel["recovered_at"] is not None, "reloc: never recovered")
     require(rel["final_stage"] == 3, "reloc: final stage is not DEFAULT")
     log(f"launches on the reloc path: {json.dumps(launches_r)}")
-    for name, cnt in launches_r.items():
-        require(cnt > 0, f"{name} was not launched on the reloc path")
+    require_path_launches(launches_r, "reloc")
 
     # ---- 8a. Levenberg-Marquardt on phase 4's configuration and frames -------
     from android_svo_tpu_torch.ops import detect, matcher
@@ -1621,8 +1803,7 @@ def main() -> int:
     require(run_lm["n_kf"] >= 1, "lm path: no keyframe after bootstrap")
     require(math.isfinite(run_lm["ate"]) and run_lm["ate"] <= 0.02,
             f"lm path ATE {run_lm['ate']} > 0.02")
-    for name, cnt in launches_lm.items():
-        require(cnt > 0, f"{name} was not launched on the lm path")
+    require_path_launches(launches_lm, "lm")
     require(dc_lm <= 5e-3, f"lm path: camera centres differ from the plain "
             f"run by {dc_lm} > 5e-3")
 
@@ -1687,12 +1868,8 @@ def main() -> int:
     require(n_edge_seeds > 0, "no edgelet seeds in the depth filter")
     require(math.isfinite(run_e["ate"]) and run_e["ate"] <= ate_limit,
             f"edgelet path ATE {run_e['ate']} > {ate_limit}")
-    for name in ("sample_patches_kernel", "align_iclk_window_kernel",
-                 "epi_scan_kernel"):
-        require(launches_e[name] > 0,
-                f"{name} was not launched on the edgelet path")
-    require(launches_e["align_iclk_kernel"] == 0,
-            "align_iclk_kernel launched on the edgelet path")
+    require_path_launches(launches_e, "edgelet",
+                          absent=("align_iclk_kernel",))
     require(dc_e <= 5e-3, f"edgelet path: camera centres differ from the "
             f"plain run by {dc_e} > 5e-3")
     # the align1d host time of the kernel run alone, per call at the seed
@@ -1729,6 +1906,10 @@ def main() -> int:
         with open(out) as f:
             bt = json.load(f)
     log(f"batched phase: {bt['phase_s']:.1f} s [{label}]")
+
+    # ---- 11. the last slice's public names on the card ---------------------
+    sf = surface_phase(dev, label, x, ds["traj"])
+    log(f"surface phase: {sf['phase_s']:.1f} s [{label}]")
 
     kernels = []
     for name in ("sample_patches_kernel", "align_iclk_window_kernel",
@@ -1771,6 +1952,28 @@ def main() -> int:
         # the batched form: one launch for the 11 frames of phase 10a
         forms[f"batched_b{N_SEQ}"] = bt["kernels"][name]
         kernels[-1]["forms"] = forms
+    # the window dump: its path is phase 11's public dump_windows; every
+    # tracking path holds it at 0 launches
+    k_ms, p_ms, d_ms = timing[DUMP]
+    b_ms, b_by, b_bytes, b_flops = bounds[DUMP]
+    kernels.append({
+        "name": DUMP, "route": "cuda", "source": SOURCE,
+        "replaces": KERNEL_META[DUMP], "launches": sf["launches"][DUMP],
+        "launches_by_path": {"surface": sf["launches"][DUMP],
+                             "gate_phase3": gate_launches[DUMP],
+                             "main": launches[DUMP],
+                             "default": launches_d[DUMP],
+                             "reloc": launches_r[DUMP], "lm": launches_lm[DUMP],
+                             "edgelets": launches_e[DUMP],
+                             "dataset": ds["launches"][DUMP],
+                             "batched": bt["launches"][DUMP]},
+        "max_abs_err": gate.max_abs_err.get(DUMP, 0.0),
+        "max_abs_err_752x480": ds["gate_err"].get(DUMP, 0.0), "ms": k_ms,
+        "kernel_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "bound_bytes": b_bytes, "bound_flops": b_flops,
+        "library_ms": None, "library_kernel_ms": None, "card": label,
+        "host_ops_per_call": host_ops[DUMP],
+        "redesigned_in": REDESIGNED_IN[DUMP]})
     pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",
@@ -1838,9 +2041,11 @@ def main() -> int:
                      "align1d_plain_ms_per_call": a1d_plain_ms}}}),
           flush=True)
     print(json.dumps({"dataset": {k: v for k, v in ds.items()
-                                  if k != "gate_err"}}), flush=True)
+                                  if k not in ("gate_err", "traj")}}),
+          flush=True)
     print(json.dumps({"batched": {k: v for k, v in bt.items()
                                   if k != "kernels"}}), flush=True)
+    print(json.dumps({"surface": sf}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,7 +40,8 @@ def test_kernel_gate(problem):
                                   "align_iclk_kernel",
                                   "align_iclk_window_kernel",
                                   "sample_patches_kernel/align1d",
-                                  "align_iclk_window_kernel/ungated"])
+                                  "align_iclk_window_kernel/ungated",
+                                  "dump_windows_kernel"])
 def test_wrapper_launches_and_counts(problem, name):
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
@@ -286,11 +287,11 @@ def test_wrappers_refuse_other_types(problem):
 @pytest.mark.parametrize("case", ["sample_4x4", "sample_8x8_grad",
                                   "sample_8x8_align1d", "window_gated",
                                   "window_ungated", "align", "scan",
-                                  "scan_no_steps"])
+                                  "scan_no_steps", "dump"])
 def test_wrapper_dispatch_counts(problem, case):
     """Under torch.profiler one call of the sampler dispatches at most 4
-    ATen ops and one of align_iclk_mxu, align_iclk or epi_scan at most 3,
-    each exactly 1 device kernel."""
+    ATen ops and one of align_iclk_mxu, align_iclk, epi_scan or
+    dump_windows at most 3, each exactly 1 device kernel."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
     from android_svo_tpu_torch.utils.profiling import dispatch_counts
@@ -310,6 +311,7 @@ def test_wrapper_dispatch_counts(problem, case):
         "scan_no_steps": (lambda: pk.epi_scan(
             x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100,
             h=x["h"], w=x["w"]), 3),
+        "dump": (lambda: calls["dump_windows_kernel"](True), 3),
     }[case]
     fn()                                   # build and warm up
     n_ops, n_dev = dispatch_counts(fn)
@@ -440,6 +442,126 @@ def test_scan_nonfinite_ends_read_as_zero(problem):
     torch.cuda.synchronize()
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+# ---- dump_windows_kernel ----------------------------------------------------
+
+def _dump_agrees(stack, lvl, uv, valid):
+    """dump_windows on the card against its plain version: one launch,
+    origins equal, valid rows bit for bit, dead rows zero."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    pk.reset_launch_counts()
+    wk, ok = pk.dump_windows(stack, lvl, uv, valid)
+    wp, op = pk.dump_windows(stack, lvl, uv, valid, use_pallas=False)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["dump_windows_kernel"] == 1
+    assert wk.shape == (lvl.shape[0], pk.DUMP_WR, pk.DUMP_WC)
+    assert ok.dtype == torch.int32 and torch.equal(ok, op)
+    assert torch.equal(wk[valid], wp[valid])
+    assert not wk[~valid].any()
+    return wk, ok
+
+
+def test_dump_windows_matches_plain(problem):
+    """The gate's problem: the mixed valid mask and partly non-finite
+    centres at three levels."""
+    x = problem
+    valid = x["valid_mixed"]
+    assert bool(valid.any()) and not bool(valid.all())
+    assert not bool(torch.isfinite(x["dump_uv"]).all())
+    _dump_agrees(x["stack"], x["lvl"], x["dump_uv"], valid)
+
+
+def test_dump_windows_reads_strided_stacks(problem):
+    """A stack read through its plane and row strides (sparse alignment's
+    level-2 substack; a corner of every plane) gives the windows of a
+    contiguous copy, bit for bit."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    n = x["lvl"].shape[0]
+    for stack, lvl, uv in (
+            (x["sub"], x["zeros_lvl"], x["sub_uv"]),
+            (x["stack"][:, :200, :300], x["lvl"], x["uv"])):
+        assert not stack.is_contiguous()
+        valid = torch.ones((n,), dtype=torch.bool, device=stack.device)
+        wk, ok = _dump_agrees(stack, lvl, uv, valid)
+        wc, oc = pk.dump_windows(stack.contiguous(), lvl, uv, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, wc) and torch.equal(ok, oc)
+
+
+def test_dump_windows_clamps(card):
+    """Centres off the plane, on its edges and at +-1e6, levels below 0
+    and past the last: origins clamp to [0, Wp - 65] x [0, Hp - 33] and
+    levels to [0, L - 1], as in the plain version."""
+    g = torch.Generator(device=card).manual_seed(9)
+    stack = torch.rand((3, 100, 200), generator=g, device=card)
+    n = 512
+    uv = torch.rand((n, 2), generator=g, device=card) * 400.0 - 100.0
+    specials = torch.tensor([1e6, -1e6, 0.0, 199.5, 99.99, 31.999999,
+                             16.0, 64.5], device=card)
+    pick = torch.randint(0, 8, (n, 2), generator=g, device=card)
+    mask = torch.rand((n, 2), generator=g, device=card) < 0.3
+    uv = torch.where(mask, specials[pick], uv).contiguous()
+    lvl = torch.randint(-2, 5, (n,), generator=g, device=card).to(torch.int32)
+    valid = torch.rand((n,), generator=g, device=card) < 0.9
+    _, org = _dump_agrees(stack, lvl, uv, valid)
+    assert int(org[:, 0].min()) == 0 and int(org[:, 0].max()) == 200 - 65
+    assert int(org[:, 1].min()) == 0 and int(org[:, 1].max()) == 100 - 33
+
+
+def test_dump_windows_nonfinite_uv_read_as_zero(problem):
+    """NaN and +-inf in uv give the windows and origins of the zeroed
+    centres (the plain version's nan_to_num)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    uv = _poison(x["uv"])
+    valid = x["valid"]
+    a = _dump_agrees(x["stack"], x["lvl"], uv, valid)
+    b = pk.dump_windows(x["stack"], x["lvl"], _nan0(uv), valid)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("bad", ["lvl_int64", "uv_float64", "valid_uint8",
+                                 "uv_on_cpu", "valid_on_cpu", "lvl_strided",
+                                 "uv_shape", "stack_batched",
+                                 "stack_too_small", "stack_float64"])
+def test_dump_windows_checks_before_launch(problem, bad):
+    """Every input the kernel does not take raises before any allocation
+    or launch; the wrapper converts nothing and never takes the plain
+    version for a CUDA stack."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    stack, lvl, uv, valid = x["stack"], x["lvl"], x["uv"], x["valid"]
+    if bad == "lvl_int64":
+        lvl = lvl.long()
+    elif bad == "uv_float64":
+        uv = uv.double()
+    elif bad == "valid_uint8":
+        valid = valid.to(torch.uint8)
+    elif bad == "uv_on_cpu":
+        uv = uv.cpu()
+    elif bad == "valid_on_cpu":
+        valid = valid.cpu()
+    elif bad == "lvl_strided":
+        lvl = torch.stack([lvl, lvl], -1)[:, 0]
+    elif bad == "uv_shape":
+        uv = uv[:-1]
+    elif bad == "stack_batched":
+        stack = stack[None]
+    elif bad == "stack_too_small":
+        stack = stack[:, :31, :]
+    else:
+        stack = stack.double()
+    pk.reset_launch_counts()
+    err = TypeError if bad in ("lvl_int64", "uv_float64", "valid_uint8") \
+        else ValueError
+    with pytest.raises(err):
+        pk.dump_windows(stack, lvl, uv, valid)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in pk.LAUNCHES.values())
 
 
 # ---- the dataset path: feeder ring, YUV, loader and handler devices -------

@@ -48,6 +48,99 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+JAX_ROOT = ROOT / "android_svo_tpu"
+JAX_FILES = sorted(JAX_ROOT.rglob("*.py"))
+# JAX names the port has no counterpart for, each with its reason
+EXEMPT = {
+    ("ops/patch_pallas.py", name): (
+        "the Pallas kernels' tiling for Mosaic's (8, 128) layout "
+        "(patch_pallas.py:55-60); the CUDA kernels read the stack through "
+        "its strides and have no window tiles")
+    for name in ("BLK", "CROP", "WIN_R", "WIN_C")}
+
+
+def _public(name):
+    return not name.startswith("_") or (name.startswith("__")
+                                        and name.endswith("__"))
+
+
+def _jax_surface(path, imports=False):
+    """The public names a JAX module defines at its top level (and, with
+    `imports`, those its import statements bind), and the public methods
+    (properties and dunders included) of its classes, by `ast`: nothing of
+    JAX is imported."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names, methods = [], []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        if isinstance(node, ast.ClassDef):
+            methods += [(node.name, b.name) for b in node.body
+                        if isinstance(b, ast.FunctionDef)
+                        and b.name != "__init__"]
+        elif isinstance(node, ast.Assign):
+            names += [tg.id for tg in node.targets if isinstance(tg, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.append(node.target.id)
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names += [(a.asname or a.name).split(".")[0] for a in node.names]
+    return ([n for n in names if _public(n) and n != "__all__"],
+            [(c, m) for c, m in methods if _public(c) and _public(m)])
+
+
+def _port_module(path):
+    rel = path.relative_to(JAX_ROOT).with_suffix("")
+    parts = ["patch_kernels" if p == "patch_pallas" else p for p in rel.parts]
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(["android_svo_tpu_torch", *parts])
+
+
+@pytest.mark.parametrize("path", JAX_FILES,
+                         ids=[str(p.relative_to(JAX_ROOT)) for p in JAX_FILES])
+def test_every_jax_public_name_has_a_counterpart(path):
+    """Every public top-level function, class, constant and imported name
+    of the JAX module, and every public method of its classes, exists under
+    the same name in the port's module of the same path
+    (`ops/patch_kernels.py` for `ops/patch_pallas.py`), but for `EXEMPT`.
+    Only the JAX module's source is read; the port's module is imported."""
+    import importlib
+    rel = str(path.relative_to(JAX_ROOT))
+    mod = importlib.import_module(_port_module(path))
+    names, methods = _jax_surface(path)
+    imported = {n for n in names if not hasattr(mod, n)}
+    missing = sorted(n for n in imported if (rel, n) not in EXEMPT)
+    missing += sorted(f"{c}.{m}" for c, m in methods
+                      if not hasattr(getattr(mod, c, None), m))
+    assert not missing, f"{mod.__name__} lacks {missing}"
+    # an exemption names a JAX name the port really lacks
+    for (r, name), reason in EXEMPT.items():
+        if r == rel:
+            assert name in imported and reason, name
+
+
+def test_exemptions_are_the_tpu_tiling_constants():
+    assert sorted(n for _, n in EXEMPT) == ["BLK", "CROP", "WIN_C", "WIN_R"]
+    assert {r for r, _ in EXEMPT} == {"ops/patch_pallas.py"}
+
+
+@pytest.mark.parametrize(
+    "path", sorted(JAX_ROOT.rglob("__init__.py")),
+    ids=[str(p.relative_to(JAX_ROOT))
+         for p in sorted(JAX_ROOT.rglob("__init__.py"))])
+def test_package_inits_bind_the_jax_names(path):
+    """What each JAX `__init__.py` binds (imports, `__all__`), the port's
+    `__init__.py` of the same package binds too, read from its source (a
+    submodule imported elsewhere would also show as an attribute)."""
+    port_init = (ROOT / "android_svo_tpu_torch"
+                 / path.relative_to(JAX_ROOT))
+    want, _ = _jax_surface(path, imports=True)
+    got, _ = _jax_surface(port_init, imports=True)
+    assert set(want) - {"annotations"} <= set(got), sorted(
+        set(want) - set(got))
+
+
 def test_config_matches_jax_field_by_field():
     jf = {f.name: f for f in dataclasses.fields(JConfig)}
     pf = {f.name: f for f in dataclasses.fields(SVOConfig)}
@@ -69,7 +162,8 @@ def _no_cuda(monkeypatch):
                                    "load_euroc", "load_tum",
                                    "native_feeder", "init_batched_state",
                                    "batched_track", "entry", "make_mesh",
-                                   "sharded_rank", "spawn_ranks"])
+                                   "sharded_rank", "spawn_ranks",
+                                   "make_trajectory", "se3_from_matrix"])
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
     """Without a card, an entry point called without `device` raises
     instead of running on the CPU."""
@@ -117,6 +211,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path, entry):
         elif entry == "spawn_ranks":
             sharded_rank.spawn_ranks("ba", 1, 1, str(tmp_path / "in.npz"),
                                      str(tmp_path))
+        elif entry == "make_trajectory":
+            synthetic.make_trajectory(3)
+        elif entry == "se3_from_matrix":
+            # an array has no device: it goes to the card unless asked
+            from android_svo_tpu_torch.geometry.se3 import SE3
+            SE3.from_matrix(np.eye(4, dtype=np.float32))
         else:
             reloc_demo.run(frames=2, width=64, height=48, trace=None)
 

@@ -237,15 +237,37 @@ class TestAlignICLK:
 class TestAlignWindow:
     @pytest.mark.parametrize("mode", JAX_MODES)
     def test_dump_windows_matches_jax(self, stack, problem, mode):
+        """The public dump_windows (its plain version on CPU tensors)."""
         x = problem
         wj, oj = pp.dump_windows(stack, jnp.asarray(x["lvl"]),
                                  jnp.asarray(x["uv"]),
                                  jnp.asarray(x["valid"]), **mode)
-        wp, op = pk.dump_windows_plain(t(stack), t(x["lvl"]), t(x["uv"]),
-                                       t(x["valid"]))
+        wp, op = pk.dump_windows(t(stack), t(x["lvl"]), t(x["uv"]),
+                                 t(x["valid"]))
         np.testing.assert_array_equal(op.numpy(), np.asarray(oj))
         m = x["valid"]
         np.testing.assert_array_equal(wp.numpy()[m], np.asarray(wj)[m])
+
+    def test_dump_windows_clamps_match_jax_spec(self, stack, problem):
+        """Non-finite, off-plane and edge centres and out-of-range levels
+        against the JAX spec path (use_pallas=False): origins equal, every
+        row's window equal (both copy dead rows too)."""
+        x = problem
+        rng = np.random.default_rng(11)
+        uv = (rng.random((N, 2)) * [W + 200.0, H + 200.0] - 100.0).astype(
+            np.float32)
+        uv[::6, 0] = np.nan
+        uv[1::6, 1] = np.inf
+        uv[2::6] = -np.inf
+        uv[3::6] = [[0.0, 0.0], [W - 1.0, H - 1.0], [31.9999, 15.5],
+                    [1e6, -1e6], [stack.shape[2], stack.shape[1]],
+                    [32.0, 16.0], [64.5, 33.5], [-0.5, -0.5]]
+        lvl = rng.integers(-2, L + 2, N).astype(np.int32)
+        wj, oj = pp.dump_windows(stack, jnp.asarray(lvl), jnp.asarray(uv),
+                                 jnp.asarray(x["valid"]), use_pallas=False)
+        wp, op = pk.dump_windows(t(stack), t(lvl), t(uv), t(x["valid"]))
+        np.testing.assert_array_equal(op.numpy(), np.asarray(oj))
+        np.testing.assert_array_equal(wp.numpy(), np.asarray(wj))
 
     @pytest.mark.parametrize("gated", [False, True])
     @pytest.mark.parametrize("mode", JAX_MODES)
@@ -359,6 +381,43 @@ class TestDispatch:
             else ValueError
         with pytest.raises(err):
             pk._sample_kernel(t(stack), lvl, uv, 2, True, valid)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["lvl_int64", "uv_float64",
+                                     "valid_uint8", "valid_none", "uv_shape",
+                                     "lvl_strided", "stack_batched",
+                                     "stack_too_small", "stack_float64"])
+    def test_dump_checks_before_launch(self, stack, problem, bad):
+        """dump_windows_kernel's wrapper converts nothing: another type,
+        shape or layout raises before any allocation or launch (its checks
+        run here)."""
+        x = problem
+        st, lvl, uv, valid = t(stack), t(x["lvl"]), t(x["uv"]), t(x["valid"])
+        if bad == "lvl_int64":
+            lvl = lvl.long()
+        elif bad == "uv_float64":
+            uv = uv.double()
+        elif bad == "valid_uint8":
+            valid = valid.to(torch.uint8)
+        elif bad == "valid_none":
+            valid = None
+        elif bad == "uv_shape":
+            uv = uv[:-1]
+        elif bad == "lvl_strided":
+            lvl = torch.stack([lvl, lvl], -1)[:, 0]
+        elif bad == "stack_batched":
+            st = st[None]
+        elif bad == "stack_too_small":
+            st = st[:, :, :pk.DUMP_WC - 1]
+        else:
+            st = st.double()
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64", "uint8",
+                                         "none")) else ValueError
+        if bad == "stack_float64":
+            err = ValueError
+        with pytest.raises(err):
+            pk._dump_kernel(st, lvl, uv, valid)
         assert all(v == 0 for v in pk.LAUNCHES.values())
 
     @pytest.mark.parametrize("bad", ["init_float64", "valid_none",
