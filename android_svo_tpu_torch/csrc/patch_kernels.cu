@@ -636,7 +636,11 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
 // and the window is cut at the origin clamped so it fits the plane (XLA's
 // dynamic_slice).  A dead row is written as zeros, as the TPU kernel zeroes
 // it before its pl.when(valid) copy.  The launcher takes planes of at least
-// 32 x 64 pixels.
+// 32 x 64 pixels.  Batched (dump_windows under torch.func.vmap, the Pallas
+// batching rule's batch grid axis): row i cuts its window from frame
+// i / n_per of a (B, L, H, W) stack with batch stride s_b; every frame has
+// the same (H, W), so the origin is the single launch's.  Rows and outputs
+// are indexed in 64 bits (B * n * 2048 floats passes 2^31 at B * n = 1 M).
 // ---------------------------------------------------------------------------
 constexpr int kDumpThreads = 256;
 
@@ -648,8 +652,9 @@ __device__ __forceinline__ int window_origin(float x, int offset, int room) {
 }
 
 __global__ void __launch_bounds__(kDumpThreads) dump_windows_kernel(
-    const float* __restrict__ stack, long long s_l, long long s_r, int L,
-    int H, int W, const int* __restrict__ lvl, const float* __restrict__ uv,
+    const float* __restrict__ stack, long long s_b, long long s_l,
+    long long s_r, int L, int H, int W, int n_per,
+    const int* __restrict__ lvl, const float* __restrict__ uv,
     long long s_un, long long s_uc, const unsigned char* __restrict__ valid,
     float* __restrict__ out_win, int* __restrict__ out_org) {
   const long long i = blockIdx.x;
@@ -670,7 +675,8 @@ __global__ void __launch_bounds__(kDumpThreads) dump_windows_kernel(
   }
   const int sx = min(max(ox, 0), W - kWinCols);
   const int sy = min(max(oy, 0), H - kWinRows);
-  const float* src = stack + (long long)min(max(lvl[i], 0), L - 1) * s_l
+  const float* src = stack + (i / n_per) * s_b
+                   + (long long)min(max(lvl[i], 0), L - 1) * s_l
                    + (long long)sy * s_r + sx;
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < kWinRows; r += kDumpThreads / 32) {
@@ -787,17 +793,18 @@ int launch_align_iclk(const float* stack, long long s_b, long long s_l,
   return iclk_launch(false, a, stream);
 }
 
-int launch_dump_windows(const float* stack, long long s_l, long long s_r,
-                        int L, int H, int W, const int* lvl, const float* uv,
-                        long long s_un, long long s_uc,
-                        const unsigned char* valid, int n, float* out_win,
-                        int* out_org, void* stream) {
+int launch_dump_windows(const float* stack, long long s_b, long long s_l,
+                        long long s_r, int L, int H, int W, const int* lvl,
+                        const float* uv, long long s_un, long long s_uc,
+                        const unsigned char* valid, int n, int n_per,
+                        float* out_win, int* out_org, void* stream) {
   if (n <= 0) return 0;
-  if (L <= 0 || H < kWinRows || W < kWinCols) {
+  if (n_per <= 0 || L <= 0 || H < kWinRows || W < kWinCols) {
     return (int)cudaErrorInvalidValue;
   }
   dump_windows_kernel<<<n, kDumpThreads, 0, (cudaStream_t)stream>>>(
-      stack, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, out_win, out_org);
+      stack, s_b, s_l, s_r, L, H, W, n_per, lvl, uv, s_un, s_uc, valid,
+      out_win, out_org);
   return (int)cudaGetLastError();
 }
 

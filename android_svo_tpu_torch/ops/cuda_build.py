@@ -52,8 +52,8 @@ _SIGNATURES = {
                                  _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL,
                                  _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _F,
                                  _I, _F, _P, _P, _P, _P],
-    "launch_dump_windows": [_P, _LL, _LL, _I, _I, _I, _P, _P, _LL, _LL, _P,
-                            _I, _P, _P, _P],
+    "launch_dump_windows": [_P, _LL, _LL, _LL, _I, _I, _I, _P, _P, _LL,
+                            _LL, _P, _I, _I, _P, _P, _P],
     "launch_probe_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
 

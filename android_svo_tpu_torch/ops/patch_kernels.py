@@ -17,8 +17,8 @@ plain PyTorch version beside it:
                               dump_windows (origin, nan_to_num)
 
 The window ICLK reads its window in place; `dump_windows_kernel` writes the
-windows out and runs only through the public `dump_windows`, which no
-tracking path calls.
+windows out and runs only through the public `dump_windows` (and its
+batched form), which no tracking path calls.
 
 Dispatch: a wrapper launches the kernel when `use_pallas` is true or None
 (the JAX package's "auto", `cfg_use_pallas`) and its tensors lie on a CUDA
@@ -718,19 +718,28 @@ def dump_windows_plain(stack, lvl, uv, valid=None, plane=None):
     return wins, org
 
 
-def _dump_kernel(stack, lvl, uv, valid):
+def _dump_kernel(stack, lvl, uv, valid, n_per: int | None = None):
     """The whole of dump_windows in one launch (the kernel zeroes
     non-finite uv, computes and clamps the origin, clamps the level and
     writes zeros for dead rows); the host makes the two allocations and
-    converts nothing: inputs of another type, shape or device raise."""
-    if stack.dim() != 3:
-        raise ValueError(f"stack must be (L, H, W), got {tuple(stack.shape)}")
-    ptr, _, s_l, s_r, L, H, W = _stack_args(stack)
+    converts nothing: inputs of another type, shape or device raise.  With
+    `n_per`, a (B, L, Hp, Wp) stack takes B * n_per rows, row i cut from
+    frame i // n_per (an (L, Hp, Wp) stack is read with batch stride 0)."""
+    if stack.dim() != 3 and (n_per is None or stack.dim() != 4):
+        raise ValueError(f"stack must be (L, H, W)"
+                         f"{'' if n_per is None else ' or (B, L, H, W)'}, "
+                         f"got {tuple(stack.shape)}")
+    stack_args = _stack_args(stack)
+    H, W = stack_args[5:]
     if H < DUMP_WR or W < DUMP_WC:
         raise ValueError(f"dump_windows_kernel takes planes of at least "
                          f"{DUMP_WR}x{DUMP_WC}, got {H}x{W}")
     dev = stack.get_device()
     n = uv.shape[0]
+    if n_per is not None and (n_per < 1 or stack.dim() == 4
+                              and n != stack.shape[0] * n_per):
+        raise ValueError(f"{n} rows are not {n_per} per frame of a "
+                         f"{tuple(stack.shape)} stack")
     check(uv, "uv", torch.float32, (n, 2), dev)
     check(lvl, "lvl", torch.int32, (n,), dev)
     contiguous(lvl, "lvl")
@@ -741,11 +750,53 @@ def _dump_kernel(stack, lvl, uv, valid):
     org = torch.empty((n, 2), dtype=torch.int32, device=stack.device)
     if n:
         su = uv.stride()
-        launch(LAUNCHES, "dump_windows_kernel", "launch_dump_windows", ptr,
-               s_l, s_r, L, H, W, lvl.data_ptr(), uv.data_ptr(), su[0], su[1],
-               valid.data_ptr(), n, wins.data_ptr(), org.data_ptr(),
-               stream(dev))
+        launch(LAUNCHES, "dump_windows_kernel", "launch_dump_windows",
+               *stack_args, lvl.data_ptr(), uv.data_ptr(), su[0], su[1],
+               valid.data_ptr(), n, n if n_per is None else n_per,
+               wins.data_ptr(), org.data_ptr(), stream(dev))
     return wins, org
+
+
+def _dump_body(stack, lvl, uv, valid, use_pallas):
+    if _on_card(stack, use_pallas):
+        return _dump_kernel(stack, lvl, uv, valid)
+    return dump_windows_plain(stack, lvl, uv, valid)
+
+
+_dump_op = torch.library.custom_op(
+    "svo_torch::dump_windows", _dump_body, mutates_args=(),
+    schema="(Tensor stack, Tensor lvl, Tensor uv, Tensor? valid, "
+           "bool use_pallas) -> (Tensor, Tensor)")
+
+
+def dump_windows_batched(stack, lvl, uv, valid, use_pallas=None):
+    """dump_windows for a batch: stack (B, L, Hp, Wp) (or (L, Hp, Wp),
+    shared by every frame), lvl / valid (B, N), uv (B, N, 2).  Returns
+    (wins (B, N, 32, 64) float32, org (B, N, 2) int32).  On CUDA two
+    allocations and one launch for all B*N rows; on the CPU the plain
+    version on the B*L planes (every frame's planes have the same (Hp, Wp),
+    so each row's origin is its frame's)."""
+    B, N = lvl.shape
+    flat = (lvl.reshape(B * N), uv.reshape(B * N, 2),
+            None if valid is None else valid.reshape(B * N))
+    if _on_card(stack, use_pallas):
+        wins, org = _dump_kernel(stack, *flat, n_per=N)
+    else:
+        if stack.dim() == 3:
+            stack = stack.expand((B,) + tuple(stack.shape))
+        planes, plane = _planes(stack, lvl, wrap=False)
+        wins, org = dump_windows_plain(planes, *flat, plane=plane)
+    return wins.view(B, N, DUMP_WR, DUMP_WC), org.view(B, N, 2)
+
+
+@_dump_op.register_vmap
+def _dump_vmap(info, in_dims, stack, lvl, uv, valid, use_pallas):
+    B = info.batch_size
+    d = in_dims
+    out = dump_windows_batched(
+        _rows(stack, d[0], B), _rows(lvl, d[1], B), _rows(uv, d[2], B),
+        _rows(valid, d[3], B), use_pallas)
+    return out, (0, 0)
 
 
 def dump_windows(stack, lvl, uv, valid, use_pallas=None):
@@ -760,10 +811,10 @@ def dump_windows(stack, lvl, uv, valid, use_pallas=None):
     strides), uv float32 (any strides), `lvl` int32 and `valid` bool, else
     it raises; a dead row's window is zeros, as the TPU kernel writes it.
     On the CPU (or with use_pallas=False) the plain version copies every
-    row's window, as the JAX fallback does: compare valid rows."""
-    if _on_card(stack, use_pallas):
-        return _dump_kernel(stack, lvl, uv, valid)
-    return dump_windows_plain(stack, lvl, uv, valid)
+    row's window, as the JAX fallback does: compare valid rows.  Under
+    `torch.func.vmap` the batch takes one launch (`dump_windows_batched`)."""
+    return _call(_dump_op, _dump_body, stack, lvl, uv, valid,
+                 _pallas(use_pallas))
 
 
 def _onehot_patch(wins, u, v, p: int):

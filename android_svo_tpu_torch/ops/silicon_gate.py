@@ -167,7 +167,7 @@ def run_gate(x: dict, calls: dict | None = None) -> GateReport:
     equal, dead rows zero (the plain version, like the JAX fallback, copies
     them too).  `calls` (default `kernel_calls(x)`, and the 8x8 sampler with
     gradients on x) may give every form as another function of the same
-    features, flattened: the batched gate's, which has no dump."""
+    features, flattened: the batched gate's."""
     failures: list[str] = []
     detail: dict[str, float] = {}
     errs: dict[str, float] = {}
@@ -276,7 +276,8 @@ def run_gate(x: dict, calls: dict | None = None) -> GateReport:
 # ---------------------------------------------------------------------------
 
 _FEATURE_KEYS = ("lvl", "uv", "valid", "valid_mixed", "ref", "rdx", "rdy",
-                 "init", "uv_a", "uv_b", "nsteps", "sub_uv", "zeros_lvl")
+                 "init", "uv_a", "uv_b", "nsteps", "sub_uv", "zeros_lvl",
+                 "dump_uv")
 
 
 def batched_gate_inputs(batch: int, n: int = 768, h: int = 480,
@@ -294,8 +295,8 @@ def batched_gate_inputs(batch: int, n: int = 768, h: int = 480,
 
 
 def batched_kernel_calls(xb: dict) -> dict:
-    """`gate_calls` in their batched forms: name -> fn(use_pallas)
-    returning (B, n, ...)."""
+    """`gate_calls` in their batched forms, the window dump's included:
+    name -> fn(use_pallas) returning (B, n, ...)."""
     return {
         "sample_patches_kernel": lambda up: pk.sample_patches_batched(
             xb["sub"], xb["zeros_lvl"], xb["sub_uv"], 2, valid=xb["valid"],
@@ -323,6 +324,9 @@ def batched_kernel_calls(xb: dict) -> dict:
                 xb["stack"], xb["lvl"], xb["ref"], xb["rdx"], xb["rdy"],
                 xb["init"], xb["valid"], 10, h=xb["h"], w=xb["w"],
                 use_pallas=up)),
+        "dump_windows_kernel": lambda up: pk.dump_windows_batched(
+            xb["stack"], xb["lvl"], xb["dump_uv"], xb["valid_mixed"],
+            use_pallas=up),
     }
 
 
@@ -350,7 +354,7 @@ def run_batched_gate(frames: list, xb: dict) -> GateReport:
     calls = batched_kernel_calls(xb)
     flat = {k: (lambda up, f=f: _flat(f(up))) for k, f in calls.items()}
     x_flat = {k: xb[k].reshape((-1,) + tuple(xb[k].shape[2:]))
-              for k in ("lvl", "uv", "valid_mixed")}
+              for k in ("lvl", "uv", "valid_mixed", "dump_uv")}
     rep = run_gate(x_flat, calls=flat)
     for name, fn in calls.items():
         kernel = kernel_of(name)

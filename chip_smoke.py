@@ -18,7 +18,9 @@ every phase passed):
                a mixed valid mask and some non-finite centres: valid rows
                bit for bit, origins equal, dead rows zero);
                times each kernel, its plain version and (where one exists) a
-               library call with CUDA events, and computes its bound; counts
+               library call with CUDA events (for the dump a 3-D
+               grid_sample(mode="nearest") at the windows' pixel centres,
+               which must copy the same pixels), and computes its bound; counts
                the ATen ops and device activities one call of each kernel's
                wrapper dispatches (at most 4 for the sampler, 3 for the
                other patch kernels and the dump, 1 for the probe; exactly 1
@@ -88,10 +90,14 @@ every phase passed):
  10. batched — (in a process of its own, started by this script) the
                batched multi-sequence step and the sharded paths at
                MH_01 cam0's geometry: (a) the four patch kernels' batched
-               forms at B=11 (11 frames' 3x480x768 stacks, 768 features
-               each): within the gate's bounds of their batched plain
-               versions, bit for bit the 11 single launches, one launch
-               and one device activity per call; (b) 11 sequences (their
+               forms and the window dump's at B=11 (11 frames' 3x480x768
+               stacks, 768 features each; the dump on the mixed valid mask
+               and partly non-finite centres): within the gate's bounds of
+               their batched plain versions (the dump: valid rows bit for
+               bit, origins equal, dead rows zero), bit for bit the 11
+               single launches, one launch and one device activity per
+               call; the dump's 3-D grid_sample on the 11 stacks timed
+               beside it; (b) 11 sequences (their
                own textures, seeds 0-10, and orbits) bootstrapped each in
                its own FrameHandler at the default SVOConfig(), stacked,
                and tracked by make_batched_track for 30 frames: 0
@@ -117,14 +123,17 @@ every phase passed):
                centres against sample_patches_kernel's gradient form on a
                one-level stack (<= 0.02 where the patch and one pixel
                around it lie inside); (b) dump_windows at the detector's
-               features of the gate frame against its plain version; (c)
+               features of the gate frame against its plain version, and
+               torch.func.vmap(dump_windows) over 3 frames' stacks (one
+               launch, equal to dump_windows_batched) and over one shared
+               stack (one launch, each frame equal to its single launch); (c)
                feature_align.align1d on the card against its CPU run
                (converged flags equal, uv within 1e-4, on the 160x120
                level); (d) SE3.from_matrix(as_matrix()) round trip (1e-5);
                (e) rpe_stats of phase 9's trajectory beside its ATE; (f)
                after enable_compilation_cache(), cuda_build.build() returns
                the built library without starting nvcc.  Both kernels must
-               launch.
+               launch; each vmap call of the dump is one launch.
 Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
 plain run, 11) runs with the launch counts set to 0 just before it and read
 just after.  The tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every
@@ -392,6 +401,41 @@ def library_align1d_ms(x):
                              padding_mode="border", align_corners=True)
 
     return time_ms(call), device_ms(call, "grid_sampler")
+
+
+def library_dump_ms(stack, lvl, uv, valid, pk):
+    """grid_sample on the window dump's inputs: the (L, Hp, Wp) stack (or
+    each of a (B, L, Hp, Wp) batch's) as one volume, sampled with
+    mode="nearest" at every window's integer pixel centres, depth on the
+    clamped level's plane: the same pixels the dump copies.  Returns (ms
+    per call, device ms of its kernel, whether its valid rows equal the
+    dump's plain version's)."""
+    import torch
+    import torch.nn.functional as F
+    from android_svo_tpu_torch.utils.profiling import device_ms
+    batched = stack.dim() == 4
+    vol = (stack[:, None] if batched else stack[None, None]).contiguous()
+    if not batched:
+        lvl, uv, valid = lvl[None], uv[None], valid[None]
+    L, hp, wp = stack.shape[-3:]
+    wins, org = pk.dump_windows_batched(vol[:, 0], lvl, uv, valid,
+                                        use_pallas=False)
+    sx = org[..., 0].clamp(0, wp - pk.DUMP_WC).float()[..., None, None]
+    sy = org[..., 1].clamp(0, hp - pk.DUMP_WR).float()[..., None, None]
+    sz = lvl.clamp(0, L - 1).float()[..., None, None]
+    cc = torch.arange(pk.DUMP_WC, device=stack.device, dtype=torch.float32)
+    rr = torch.arange(pk.DUMP_WR, device=stack.device, dtype=torch.float32)
+    px = (sx + cc).expand(*lvl.shape, pk.DUMP_WR, pk.DUMP_WC)
+    py = (sy + rr[:, None]).expand_as(px)
+    grid = torch.stack([2 * px / (wp - 1) - 1, 2 * py / (hp - 1) - 1,
+                        (2 * sz / (L - 1) - 1).expand_as(px)], -1)
+
+    def call():
+        return F.grid_sample(vol, grid, mode="nearest", padding_mode="border",
+                             align_corners=True)
+
+    same = bool(torch.equal(call()[:, 0][valid], wins[valid]))
+    return time_ms(call), device_ms(call, "grid_sampler"), same
 
 
 def probe_bound(img, uv, variant):
@@ -965,7 +1009,7 @@ def batched_phase(dev, label, workdir):
     calls = silicon_gate.batched_kernel_calls(xb)
     bounds = batched_bounds(frames, pk)
     names = ("sample_patches_kernel", "epi_scan_kernel", "align_iclk_kernel",
-             "align_iclk_window_kernel")
+             "align_iclk_window_kernel", DUMP)
     # every dispatch profile before any timing profile, as in phase 3 (a
     # device-only profile just before has left the next one without device
     # records)
@@ -976,7 +1020,14 @@ def batched_phase(dev, label, workdir):
                                              name, f"batched B={N_SEQ}")
         require(n_dev == 1, f"batched {name}: {n_dev} device activities "
                 "per call")
-    lib = library_sample_batched_ms(xb)
+    lib = {"sample_patches_kernel": library_sample_batched_ms(xb)}
+    l_ms, l_dev, lib_same = library_dump_ms(
+        xb["stack"], xb["lvl"], xb["dump_uv"], xb["valid_mixed"], pk)
+    lib[DUMP] = (l_ms, l_dev)
+    log(f"grid_sample (3-D, nearest) on the {N_SEQ} stacks for the batched "
+        f"{DUMP} (one call): {l_ms:.4f} ms, device {l_dev} ms, valid rows "
+        f"equal to the batched plain version's {lib_same} [{label}]")
+    require(lib_same, "the batched dump's grid_sample copies other pixels")
     forms = {}
     for name in names:
         fn = calls[name]
@@ -993,17 +1044,16 @@ def batched_phase(dev, label, workdir):
             "bound_by": bounds[name][1], "host_ops_per_call": n_ops,
             "max_abs_err": gate.max_abs_err.get(kernel, 0.0),
             "launches_per_call": 1,
-            "library_ms": lib[0] if kernel == "sample_patches_kernel"
-            else None,
-            "library_kernel_ms": lib[1] if kernel == "sample_patches_kernel"
-            else None}
+            "library_ms": lib.get(kernel, (None, None))[0],
+            "library_kernel_ms": lib.get(kernel, (None, None))[1]}
         log(f"batched {name} B={N_SEQ}: wrapper {k_ms:.4f} ms, device "
             f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
             f"{p_ms:.4f} ms, {N_SEQ} single launches {s_ms:.4f} ms, bound "
             f"{bounds[name][0]:.5f} ms ({bounds[name][1]}), {n_ops} ops and "
             f"{n_dev} device activity per call [{label}]")
-    log(f"grid_sample on the {N_SEQ} substacks (one call): {lib[0]:.4f} ms, "
-        f"device {lib[1]} ms [{label}]")
+    lib_s = lib["sample_patches_kernel"]
+    log(f"grid_sample on the {N_SEQ} substacks (one call): {lib_s[0]:.4f} "
+        f"ms, device {lib_s[1]} ms [{label}]")
     res["kernels"] = forms
     del frames, xb, calls
 
@@ -1299,7 +1349,7 @@ def surface_phase(dev, label, x, traj):
     from android_svo_tpu_torch.evals.trajectory import ate_rmse, rpe_stats
     from android_svo_tpu_torch.geometry.se3 import SE3
     from android_svo_tpu_torch.ops import cuda_build, detect, feature_align
-    from android_svo_tpu_torch.ops import interp, pyramid
+    from android_svo_tpu_torch.ops import interp, pyramid, silicon_gate
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.utils.cache import enable_compilation_cache
 
@@ -1347,6 +1397,38 @@ def surface_phase(dev, label, x, traj):
             f"kernel: {d_grad} > 0.02")
     require(dump_ok, "dump_windows at the detected features differs from "
             "its plain version")
+
+    # b'. torch.func.vmap of dump_windows over 3 frames' stacks (the op's
+    # vmap rule: one launch, equal to the batched form) and over one shared
+    # stack (batch stride 0: each frame's rows equal its single launch)
+    _, xb3 = silicon_gate.batched_gate_inputs(3, n=n, h=h, w=w, device=dev)
+    feats3 = (xb3["lvl"], xb3["dump_uv"], xb3["valid_mixed"])
+
+    def vmapped(in_dims, stk):
+        before = pk.LAUNCHES[DUMP]
+        out = torch.func.vmap(pk.dump_windows, in_dims=in_dims)(stk, *feats3)
+        torch.cuda.synchronize()
+        return out, pk.LAUNCHES[DUMP] - before
+
+    (wv, ov), n_batched = vmapped(0, xb3["stack"])
+    (wv0, ov0), n_shared = vmapped((None, 0, 0, 0), x["stack"])
+    same = silicon_gate.same_bits
+    wb, ob = pk.dump_windows_batched(xb3["stack"], *feats3)
+    vmap_ok = same(wv, wb) and same(ov, ob)
+    singles = [pk.dump_windows(x["stack"], *(f[b] for f in feats3))
+               for b in range(3)]
+    shared_ok = all(same(wv0[b], w1) and same(ov0[b], o1)
+                    for b, (w1, o1) in enumerate(singles))
+    log(f"surface [{label}]: torch.func.vmap(dump_windows) over 3 frames' "
+        f"stacks / over one shared stack: {n_batched} / {n_shared} launches "
+        f"(limit 1 each), equal to dump_windows_batched {vmap_ok}, shared "
+        f"stack equal to each frame's single launch {shared_ok}")
+    require(n_batched == n_shared == 1, f"vmap of dump_windows: "
+            f"{n_batched} / {n_shared} launches, not one per batched call")
+    require(vmap_ok, "vmap of dump_windows differs from the batched form")
+    require(shared_ok, "vmap of dump_windows on a shared stack differs from "
+            "the single launches")
+    del xb3, feats3
 
     # c. align1d on the card against its CPU run, on the 160x120 level
     im2 = pyramid.level_view(x["stack"], 2, h, w)
@@ -1415,7 +1497,10 @@ def surface_phase(dev, label, x, traj):
         "without starting nvcc")
     require(again == lib, f"build() returned {again}, not {lib}")
     return {"card": label, "launches": launches, "grad_max_abs_d": d_grad,
-            "dump_equal": dump_ok, "align1d_uv_max_abs_d": d_a1d,
+            "dump_equal": dump_ok,
+            "vmap_launches": {"stacks": n_batched, "shared_stack": n_shared},
+            "vmap_equal": vmap_ok and shared_ok,
+            "align1d_uv_max_abs_d": d_a1d,
             "se3_roundtrip_max_abs_d": max(d_q, d_t, d_m),
             "ate_phase9": ate, "rpe_mean": rpe_mean,
             "rpe_median": rpe_median,
@@ -1479,9 +1564,15 @@ def main() -> int:
     bounds = kernel_bounds(x, pk)
     lib_ms = {"sample_patches_kernel": library_sample_ms(x),
               "sample_patches_kernel/align1d": library_align1d_ms(x)}
+    l_ms, l_dev, lib_same = library_dump_ms(
+        x["stack"], x["lvl"], x["dump_uv"], x["valid_mixed"], pk)
+    lib_ms[DUMP] = (l_ms, l_dev)
     for name, (l_ms, l_dev) in lib_ms.items():
         log(f"grid_sample for {name}: {l_ms:.4f} ms, device {l_dev} ms "
             f"[{label}]")
+    log(f"grid_sample (3-D, nearest) for {DUMP}: valid rows equal to the "
+        f"plain version's {lib_same}")
+    require(lib_same, "the dump's grid_sample copies other pixels")
     pimg, puv = microbench_gather.make_inputs(seed=1, device=dev)
     # what the redesigned wrappers dispatch per call on the host
     dispatch = {
@@ -1960,6 +2051,9 @@ def main() -> int:
         "name": DUMP, "route": "cuda", "source": SOURCE,
         "replaces": KERNEL_META[DUMP], "launches": sf["launches"][DUMP],
         "launches_by_path": {"surface": sf["launches"][DUMP],
+                             "surface_vmap": sf["vmap_launches"]["stacks"],
+                             "surface_vmap_shared_stack":
+                                 sf["vmap_launches"]["shared_stack"],
                              "gate_phase3": gate_launches[DUMP],
                              "main": launches[DUMP],
                              "default": launches_d[DUMP],
@@ -1971,9 +2065,10 @@ def main() -> int:
         "max_abs_err_752x480": ds["gate_err"].get(DUMP, 0.0), "ms": k_ms,
         "kernel_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "bound_bytes": b_bytes, "bound_flops": b_flops,
-        "library_ms": None, "library_kernel_ms": None, "card": label,
-        "host_ops_per_call": host_ops[DUMP],
-        "redesigned_in": REDESIGNED_IN[DUMP]})
+        "library_ms": lib_ms[DUMP][0], "library_kernel_ms": lib_ms[DUMP][1],
+        "card": label, "host_ops_per_call": host_ops[DUMP],
+        "redesigned_in": REDESIGNED_IN[DUMP],
+        "forms": {f"batched_b{N_SEQ}": bt["kernels"][DUMP]}})
     pa, big = probe_a[PROBE_SIZES[0]], probe_a[PROBE_SIZES[1]]
     kernels.append({
         "name": "probe_patches_kernel", "route": "cuda",

@@ -653,7 +653,7 @@ def batched_problem(card):
 BATCHED_FORMS = ["sample_patches_kernel", "sample_patches_kernel/grad",
                  "sample_patches_kernel/align1d", "epi_scan_kernel",
                  "align_iclk_kernel", "align_iclk_window_kernel",
-                 "align_iclk_window_kernel/ungated"]
+                 "align_iclk_window_kernel/ungated", "dump_windows_kernel"]
 
 
 @pytest.mark.parametrize("name", BATCHED_FORMS)
@@ -684,15 +684,97 @@ def test_batched_gate(batched_problem):
     assert rep.ok, rep.failures
 
 
-def test_vmap_of_a_wrapper_launches_once(batched_problem):
+VMAP_WRAPPERS = {
+    "sample_patches_kernel": (
+        lambda xb: (xb["stack"], xb["lvl"], xb["uv"]),
+        lambda pk: lambda s, l, u: pk.sample_patches(s, l, u, 4),
+        lambda pk: lambda *a: pk.sample_patches_batched(*a, 4)),
+    "dump_windows_kernel": (
+        lambda xb: (xb["stack"], xb["lvl"], xb["dump_uv"],
+                    xb["valid_mixed"]),
+        lambda pk: pk.dump_windows,
+        lambda pk: pk.dump_windows_batched),
+}
+
+
+@pytest.mark.parametrize("kernel", list(VMAP_WRAPPERS))
+def test_vmap_of_a_wrapper_launches_once(batched_problem, kernel):
     """torch.func.vmap over the per-frame wrapper takes the batched form:
-    one launch for the batch."""
+    one launch for the batch, equal to the batched form bit for bit."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    _, xb = batched_problem
+    args, single, batched = VMAP_WRAPPERS[kernel]
+    pk.reset_launch_counts()
+    out = torch.func.vmap(single(pk))(*args(xb))
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES[kernel] == 1
+    out = out if isinstance(out, tuple) else (out,)
+    ref = batched(pk)(*args(xb))
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(out, ref):
+        assert silicon_gate.same_bits(o, r)
+
+
+def test_batched_dump_reads_a_shared_stack(batched_problem):
+    """One (L, Hp, Wp) stack for every frame (batch stride 0, as vmap's
+    in_dims None gives it): one launch, each frame's rows equal to its own
+    single launch on that stack bit for bit, dead rows zero."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    frames, xb = batched_problem
+    stack = frames[1]["stack"]
+    feats = (xb["lvl"], xb["dump_uv"], xb["valid_mixed"])
+    pk.reset_launch_counts()
+    wins, org = pk.dump_windows_batched(stack, *feats)
+    wv, ov = torch.func.vmap(pk.dump_windows, in_dims=(None, 0, 0, 0))(
+        stack, *feats)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["dump_windows_kernel"] == 2
+    same = silicon_gate.same_bits
+    assert same(wv, wins) and same(ov, org)
+    for b in range(len(frames)):
+        w1, o1 = pk.dump_windows(stack, *(f[b] for f in feats))
+        assert same(wins[b], w1) and same(org[b], o1), b
+    assert not wins[~xb["valid_mixed"]].any()
+
+
+@pytest.mark.parametrize("bad", ["lvl_int64", "uv_float64", "valid_uint8",
+                                 "uv_on_cpu", "valid_on_cpu", "lvl_strided",
+                                 "rows_not_per_frame", "stack_5d",
+                                 "stack_cols_strided", "stack_float64"])
+def test_batched_dump_checks_before_launch(batched_problem, bad):
+    """The batched form raises before any allocation or launch on an input
+    the kernel does not take; it converts nothing and never takes the plain
+    version for a CUDA stack."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     _, xb = batched_problem
+    stack, lvl, uv, valid = (xb["stack"], xb["lvl"], xb["dump_uv"],
+                             xb["valid_mixed"])
+    if bad == "lvl_int64":
+        lvl = lvl.long()
+    elif bad == "uv_float64":
+        uv = uv.double()
+    elif bad == "valid_uint8":
+        valid = valid.to(torch.uint8)
+    elif bad == "uv_on_cpu":
+        uv = uv.cpu()
+    elif bad == "valid_on_cpu":
+        valid = valid.cpu()
+    elif bad == "lvl_strided":
+        lvl = torch.stack([lvl, lvl], -1)[..., 0]
+    elif bad == "rows_not_per_frame":
+        stack = stack[:-1]
+    elif bad == "stack_5d":
+        stack = stack[None]
+    elif bad == "stack_cols_strided":
+        stack = stack.transpose(-1, -2)
+    else:
+        stack = stack.double()
     pk.reset_launch_counts()
-    out = torch.func.vmap(lambda s, l, u: pk.sample_patches(s, l, u, 4))(
-        xb["stack"], xb["lvl"], xb["uv"])
+    err = TypeError if bad in ("lvl_int64", "uv_float64", "valid_uint8") \
+        else ValueError
+    with pytest.raises(err):
+        pk.dump_windows_batched(stack, lvl, uv, valid)
     torch.cuda.synchronize()
-    assert pk.LAUNCHES["sample_patches_kernel"] == 1
-    assert torch.equal(out, pk.sample_patches_batched(
-        xb["stack"], xb["lvl"], xb["uv"], 4))
+    assert all(v == 0 for v in pk.LAUNCHES.values())

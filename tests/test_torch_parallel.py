@@ -327,6 +327,10 @@ BATCHED_PLAIN = {
             x["stack"][b], x["lvl"][b], x["p"][b], x["p"][b] * 0.1,
             x["p"][b] * 0.2, x["uv"][b], x["valid"][b], 6, h=x["h"],
             w=x["w"], zmssd_factor=2000.0, min_patch_std=5.0)),
+    "dump_windows": (lambda x, b=None: pk.dump_windows_batched(
+        x["stack"], x["lvl"], x["uv"], x["valid"])
+        if b is None else pk.dump_windows(
+            x["stack"][b], x["lvl"][b], x["uv"][b], x["valid"][b])),
 }
 
 
@@ -348,6 +352,68 @@ def test_batched_plain_matches_per_frame_plain(name):
         x["stack"], x["lvl"], x["uv"])
     torch.testing.assert_close(per, pk.sample_patches_batched(
         x["stack"], x["lvl"], x["uv"], 4), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("stack_dim", [0, None],
+                         ids=["batched_stack", "shared_stack"])
+def test_vmap_of_dump_windows_takes_its_rule(stack_dim, monkeypatch):
+    """torch.func.vmap over dump_windows goes through the op's vmap rule:
+    one call of dump_windows_batched for the batch (one launch on the card),
+    with the stack batched or shared (in_dims None: batch stride 0), and
+    each frame's rows exactly the per-frame call's (both sides copy, so
+    every row, dead ones too)."""
+    x = _kernel_inputs()
+    calls = []
+    batched = pk.dump_windows_batched
+
+    def spy(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return batched(*a, **kw)
+
+    monkeypatch.setattr(pk, "dump_windows_batched", spy)
+    B = x["stack"].shape[0]
+    stack = x["stack"] if stack_dim == 0 else x["stack"][1]
+    wins, org = torch.func.vmap(pk.dump_windows,
+                                in_dims=(stack_dim, 0, 0, 0))(
+        stack, x["lvl"], x["uv"], x["valid"])
+    assert calls == [(B,) + tuple(x["stack"].shape[1:])]
+    assert wins.shape == (B, 40, pk.DUMP_WR, pk.DUMP_WC)
+    assert org.shape == (B, 40, 2) and org.dtype == torch.int32
+    for b in range(B):
+        w1, o1 = pk.dump_windows(stack[b] if stack_dim == 0 else stack,
+                                 x["lvl"][b], x["uv"][b], x["valid"][b])
+        assert torch.equal(wins[b], w1) and torch.equal(org[b], o1), b
+
+
+@pytest.fixture(scope="module")
+def gate_batch():
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.batched_gate_inputs(2, n=32, h=120, w=160,
+                                            device="cpu")
+
+
+@pytest.mark.parametrize("name", ["sample_patches_kernel",
+                                  "sample_patches_kernel/grad",
+                                  "sample_patches_kernel/align1d",
+                                  "epi_scan_kernel", "align_iclk_kernel",
+                                  "align_iclk_window_kernel",
+                                  "align_iclk_window_kernel/ungated",
+                                  "dump_windows_kernel"])
+def test_batched_gate_calls_match_per_frame_plain(gate_batch, name):
+    """The card's batched gate (`silicon_gate.batched_kernel_calls`, the
+    window dump's form included) on the CPU, where each form takes its
+    batched plain version: each frame's rows equal that frame's own
+    `gate_calls` bit for bit, NaN where it has NaN."""
+    from android_svo_tpu_torch.ops import silicon_gate
+    frames, xb = gate_batch
+    out = silicon_gate.batched_kernel_calls(xb)[name](True)
+    out = out if isinstance(out, tuple) else (out,)
+    for b, x in enumerate(frames):
+        one = silicon_gate.gate_calls(x)[name](True)
+        one = one if isinstance(one, tuple) else (one,)
+        assert len(out) == len(one)
+        for o, s1 in zip(out, one):
+            assert silicon_gate.same_bits(o[b], s1), (name, b)
 
 
 # ---------------------------------------------------------------------------

@@ -269,6 +269,42 @@ class TestAlignWindow:
         np.testing.assert_array_equal(op.numpy(), np.asarray(oj))
         np.testing.assert_array_equal(wp.numpy(), np.asarray(wj))
 
+    @pytest.mark.parametrize("mode", JAX_MODES)
+    @pytest.mark.parametrize("shared", [False, True],
+                             ids=["stacks", "shared_stack"])
+    def test_vmap_dump_windows_matches_jax_vmap(self, stack, problem, mode,
+                                                shared):
+        """torch.func.vmap(dump_windows) (the op's vmap rule, its batched
+        plain version here) against jax.vmap(dump_windows) (the spec's
+        nested vmap, or Pallas' batching rule in interpret mode) on B=3
+        frames, the stack batched or shared (in_axes None): origins exactly
+        on every row, windows exactly on valid rows (tolerance 0: a copy).
+        Centres include non-finite and off-plane ones, levels out of
+        range."""
+        from functools import partial
+        B = 3
+        rng = np.random.default_rng(17)
+        st = np.asarray(stack)
+        stacks = np.stack([st, st * 0.5 + 7.0, st[:, :, ::-1] + 1.0])
+        lvl = rng.integers(-1, L + 1, (B, N)).astype(np.int32)
+        uv = (rng.random((B, N, 2)) * [W + 80.0, H + 80.0] - 40.0).astype(
+            np.float32)
+        uv[0, ::5, 0] = np.nan
+        uv[1, 1::5, 1] = np.inf
+        uv[2, 2::5] = -np.inf
+        valid = rng.random((B, N)) < 0.8
+        s_j = st if shared else stacks
+        in_axes = (None if shared else 0, 0, 0, 0)
+        wj, oj = jax.vmap(partial(pp.dump_windows, **mode), in_axes=in_axes)(
+            jnp.asarray(s_j), jnp.asarray(lvl), jnp.asarray(uv),
+            jnp.asarray(valid))
+        wp, op = torch.func.vmap(pk.dump_windows, in_dims=in_axes)(
+            t(np.ascontiguousarray(s_j)), t(lvl), t(uv), t(valid))
+        assert wp.shape == (B, N, pk.DUMP_WR, pk.DUMP_WC)
+        np.testing.assert_array_equal(op.numpy(), np.asarray(oj))
+        np.testing.assert_array_equal(wp.numpy()[valid],
+                                      np.asarray(wj)[valid])
+
     @pytest.mark.parametrize("gated", [False, True])
     @pytest.mark.parametrize("mode", JAX_MODES)
     def test_plain_matches_jax(self, stack, problem, mode, gated):
@@ -418,6 +454,48 @@ class TestDispatch:
             err = ValueError
         with pytest.raises(err):
             pk._dump_kernel(st, lvl, uv, valid)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    @pytest.mark.parametrize("bad", ["lvl_int64", "uv_float64",
+                                     "valid_uint8", "uv_shape",
+                                     "lvl_strided", "rows_not_per_frame",
+                                     "n_per_zero", "stack_5d",
+                                     "stack_cols_strided", "stack_too_small"])
+    def test_batched_dump_checks_before_launch(self, stack, problem, bad):
+        """The batched dump (two frames' stacks, B * N flat rows) converts
+        nothing either: another type, shape or layout, or rows that are not
+        n_per per frame, raise before any allocation or launch."""
+        x = problem
+        st = torch.stack([t(stack), t(stack)])
+        lvl = t(np.tile(x["lvl"], 2))
+        uv = t(np.tile(x["uv"], (2, 1)))
+        valid = t(np.tile(x["valid"], 2))
+        n_per = N
+        if bad == "lvl_int64":
+            lvl = lvl.long()
+        elif bad == "uv_float64":
+            uv = uv.double()
+        elif bad == "valid_uint8":
+            valid = valid.to(torch.uint8)
+        elif bad == "uv_shape":
+            uv = uv[:-1]
+        elif bad == "lvl_strided":
+            lvl = torch.stack([lvl, lvl], -1)[:, 0]
+        elif bad == "rows_not_per_frame":
+            n_per = N - 1
+        elif bad == "n_per_zero":
+            n_per = 0
+        elif bad == "stack_5d":
+            st = st[None]
+        elif bad == "stack_cols_strided":
+            st = st.transpose(-1, -2)
+        else:
+            st = st[..., :pk.DUMP_WR - 1, :]
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64", "uint8")) \
+            else ValueError
+        with pytest.raises(err):
+            pk._dump_kernel(st, lvl, uv, valid, n_per=n_per)
         assert all(v == 0 for v in pk.LAUNCHES.values())
 
     @pytest.mark.parametrize("bad", ["init_float64", "valid_none",
