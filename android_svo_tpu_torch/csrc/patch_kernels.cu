@@ -34,6 +34,7 @@
 // Plain C interface (route (b) of the build: nvcc -shared, bound with ctypes).
 // Every launcher returns the cudaError_t of the launch; the caller raises.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,6 +43,7 @@ namespace {
 constexpr float kMinUpdateSquared = 0.03f * 0.03f;   // feature_alignment.cpp:276
 constexpr int kWinRows = 32;                          // DUMP_WR
 constexpr int kWinCols = 64;                          // DUMP_WC
+constexpr unsigned kFull = 0xffffffffu;               // every lane
 
 __device__ __forceinline__ void floor_index(float xf, int n, int* i0, int* i1) {
   float c = isnan(xf) ? 0.0f : fminf(fmaxf(xf, -1.0f), (float)n);
@@ -88,77 +90,156 @@ __device__ __forceinline__ int norm_level(int l, int L) {
   return min(max(l, 0), L - 1);
 }
 
-// ---------------------------------------------------------------------------
-// sample_patches_kernel — replaces _sample_pallas / _make_sample_kernel
-// (android_svo_tpu/ops/patch_pallas.py:124-207).
-// Bound: launch latency.  The bytes are the patches written once (48 KB per
-// output plane at the sparse-align shapes, 768 x 4x4) and the pixels they
-// touch in an L2-resident plane: hundredths of a microsecond of HBM time
-// against a launch of about two microseconds (1.8 us measured on an NVIDIA
-// H100 80GB HBM3 at 700 W).  What is left to save is host work and wasted
-// device work, so:
-// - the wrapper makes one allocation and this one launch: uv is read through
-//   its strides, NaN and +-inf in uv become 0 here (the TPU wrapper's
-//   nan_to_num), and a null `valid` means every slot is live;
-// - with gradients, each feature's (p+2)^2 bilinear grid is sampled once into
-//   shared memory and the patch and its central differences are read from it
-//   (36 samples for a 4x4 patch, 100 for 8x8, where sampling each output
-//   pixel and its four neighbours takes 80 / 320): the TPU kernel's
-//   schedule (patch_pallas.py:126,155-159).  Grid point (j, i) sits at
-//   uv + (i - half - 1, j - half - 1), where the plain version samples
-//   uv + off +- 1, so the two differ only by the rounding of that sum;
-// - features per block are chosen so 768 features make 192 blocks of 64
-//   threads (4 features of 4x4 each) and spread over all 132 SMs.
-// Without gradients one thread computes one output pixel.  Dead slots write
-// zeros.  `out` holds the patch plane, then dx and dy when grad is set.
-// ---------------------------------------------------------------------------
+// The bilinear blend of four taps, bilin's expression: the scan's reads
+// from a staged tile and from the stack both use it, so they round alike.
+__device__ __forceinline__ float lerp4(float v00, float v01, float v10,
+                                       float v11, float wx, float wy) {
+  return (1.0f - wy) * ((1.0f - wx) * v00 + wx * v01)
+       + wy * ((1.0f - wx) * v10 + wx * v11);
+}
+
 __device__ __forceinline__ float finite_or_zero(float x) {
   return isfinite(x) ? x : 0.0f;
 }
 
-__global__ void sample_patches_kernel(
+// ---------------------------------------------------------------------------
+// sample_patches_kernel — replaces _sample_pallas / _make_sample_kernel
+// (android_svo_tpu/ops/patch_pallas.py:124-207).
+// Bound: launch latency and the dependent chain of reads.  The bytes are the
+// patches written once (48 KB per output plane at the sparse-align shapes,
+// 768 x 4x4; 0.5 MB for the batched step's 8,448 rows) and the pixels they
+// touch in an L2-resident plane: tenths of a microsecond of HBM time beside
+// a launch of about 1.15 us (NVIDIA H100 80GB HBM3, 700 W).  At 8,448 rows
+// the per-pixel integer divisions and the per-pixel reads of each
+// feature's mask, level and uv cost more than the taps, so:
+// - the patch side and the gradient flag are template arguments for the
+//   half sizes the callers use (2: sparse alignment; 4: align1d and the
+//   gate's gradient form; 1: the tests), so the index arithmetic is shifts
+//   and multiplies; any other half runs the same code with a run-time half;
+// - a feature's mask, level, frame (i / n_per) and uv are read once, all at
+//   once (NaN and +-inf in uv become 0 here, the TPU wrapper's nan_to_num;
+//   a null `valid` means every slot is live).  Without gradients one thread
+//   computes one output pixel: the first lane of each feature in a warp
+//   reads the feature and shuffles it to the feature's other lanes (no
+//   barrier), and every pixel reads its 4 taps with bilin's clamps;
+// - with gradients one thread per feature reads it into shared memory, each
+//   feature's (p+2)^2 grid of bilinear samples at uv + (i - half - 1,
+//   j - half - 1) is sampled once into shared memory, and the patch and its
+//   central differences are read from it, the TPU kernel's schedule
+//   (patch_pallas.py:126,155-159); the plain version samples uv + off +- 1,
+//   so the two differ only by the rounding of that sum;
+// - features per block: up to 256 threads of whole patches, halved while
+//   that would leave fewer than kMinBlocks blocks, down to 64 threads (the
+//   batched step's 8,448 4x4 rows: 528 blocks of 256 threads; 768 rows: 192
+//   blocks of 64).
+// Staging each feature's clamped (p+2)^2 footprint in shared memory and
+// blending from it (as probe_patches_kernel does) gave the same bits but
+// ran 0.1-0.4 us slower on the single 4x4 and align1d forms and the batched
+// 4x4 form, the main path's, and 0.15 us faster only on the batched align1d
+// form (build/sample_staged_footprint.patch, tools/patch_ab.py on an NVIDIA
+// H100 80GB HBM3 at 700 W): at 16 or 64 pixels a feature, the shared reads
+// do not pay for the barrier and the copy.
+// Dead slots write zeros.  `out` holds the patch plane, then dx and dy when
+// grad is set.
+// ---------------------------------------------------------------------------
+constexpr int kSampleThreads = 256;
+constexpr int kMinBlocks = 264;         // two per SM of an H100's 132
+
+struct SampleFeature {                  // a feature's reads, made once
+  const float* img;                     // its frame's level plane
+  float u, v;                           // uv, NaN and +-inf as 0
+  int live;
+};
+
+// Feature i's reads, all issued at once (a dead slot's level and uv are
+// read and not used).
+__device__ __forceinline__ SampleFeature read_feature(
+    int i, const float* __restrict__ stack, long long s_b, long long s_l,
+    int L, const int* __restrict__ lvl, const float* __restrict__ uv,
+    long long s_un, long long s_uc, const unsigned char* __restrict__ valid,
+    int n_per) {
+  const bool live = valid == nullptr || valid[i];
+  const int l = lvl[i];
+  const float u = uv[i * s_un], v = uv[i * s_un + s_uc];
+  return {stack + (long long)(i / n_per) * s_b
+              + (long long)norm_level(l, L) * s_l,
+          finite_or_zero(u), finite_or_zero(v), live};
+}
+
+template <int HALF, bool GRAD>           // HALF = 0: half_rt at run time
+__global__ void __launch_bounds__(kSampleThreads) sample_patches_kernel(
     const float* __restrict__ stack, long long s_b, long long s_l,
     long long s_r, int L, int H, int W, const int* __restrict__ lvl,
     const float* __restrict__ uv, long long s_un, long long s_uc,
-    const unsigned char* __restrict__ valid, int n, int n_per, int half,
-    int grad, int per_block, float* __restrict__ out) {
-  extern __shared__ float grid[];          // per_block x (p+2)^2 when grad
+    const unsigned char* __restrict__ valid, int n, int n_per, int half_rt,
+    int per_block, float* __restrict__ out) {
+  const int half = HALF ? HALF : half_rt;
   const int p = 2 * half;
   const int area = p * p;
   const int f0 = blockIdx.x * per_block;
   const int nf = min(per_block, n - f0);
-  const int s = grad ? p + 2 : p;          // sampled grid side
-  const int border = grad ? 1 : 0;
-  const int sarea = s * s;
-  for (int e = threadIdx.x; e < nf * sarea; e += blockDim.x) {
-    const int i = f0 + e / sarea;
-    const int g = e % sarea;
-    float val = 0.0f;
-    if (valid == nullptr || valid[i]) {
-      const float* img = stack + (long long)(i / n_per) * s_b
-                       + (long long)norm_level(lvl[i], L) * s_l;
-      const float u = finite_or_zero(uv[i * s_un]);
-      const float v = finite_or_zero(uv[i * s_un + s_uc]);
-      val = bilin(img, s_r, H, W, u + (float)(g % s - half - border),
-                  v + (float)(g / s - half - border));
+  if constexpr (!GRAD) {
+    // one thread per output pixel; the first lane of each feature in a warp
+    // reads the feature and shuffles it to the feature's other lanes
+    const int lane = threadIdx.x & 31;
+    for (int base = threadIdx.x - lane; base < nf * area;
+         base += blockDim.x) {
+      const int e = base + lane;
+      const int f = e / area;
+      const int pix = e - f * area;
+      const int src = max(f * area - base, 0);
+      SampleFeature a{nullptr, 0.0f, 0.0f, 0};
+      if (lane == src && e < nf * area) {
+        a = read_feature(f0 + f, stack, s_b, s_l, L, lvl, uv, s_un, s_uc,
+                         valid, n_per);
+      }
+      a.img = reinterpret_cast<const float*>(__shfl_sync(
+          kFull, reinterpret_cast<unsigned long long>(a.img), src));
+      a.u = __shfl_sync(kFull, a.u, src);
+      a.v = __shfl_sync(kFull, a.v, src);
+      a.live = __shfl_sync(kFull, a.live, src);
+      if (e < nf * area) {
+        const int r = pix / p, c = pix - r * p;
+        out[(long long)(f0 + f) * area + pix] =
+            a.live ? bilin(a.img, s_r, H, W, a.u + (float)(c - half),
+                           a.v + (float)(r - half))
+                   : 0.0f;
+      }
     }
-    if (grad) {
-      grid[e] = val;
-    } else {
-      out[(long long)i * area + g] = val;
-    }
+    return;
   }
-  if (!grad) return;
+  // with gradients: each feature's (p+2)^2 grid of samples in shared memory
+  extern __shared__ float4 smem_sample[];
+  const int s = p + 2;
+  const int sarea = s * s;
+  SampleFeature* feat = reinterpret_cast<SampleFeature*>(smem_sample);
+  float* grid = reinterpret_cast<float*>(feat + per_block);
+  for (int f = threadIdx.x; f < nf; f += blockDim.x) {
+    feat[f] = read_feature(f0 + f, stack, s_b, s_l, L, lvl, uv, s_un, s_uc,
+                           valid, n_per);
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int e = threadIdx.x; e < nf * sarea; e += blockDim.x) {
+    const int f = e / sarea;
+    const int g = e - f * sarea;
+    const int gy = g / s, gx = g - gy * s;
+    const SampleFeature& a = feat[f];
+    grid[e] = a.live ? bilin(a.img, s_r, H, W, a.u + (float)(gx - half - 1),
+                             a.v + (float)(gy - half - 1))
+                     : 0.0f;
+  }
   __syncthreads();
   const long long plane = (long long)n * area;
   for (int e = threadIdx.x; e < nf * area; e += blockDim.x) {
     const int f = e / area;
-    const int pix = e % area;
-    const float* c = grid + f * sarea + (pix / p + 1) * s + pix % p + 1;
+    const int pix = e - f * area;
+    const int r = pix / p, c = pix - r * p;
+    const float* cc = grid + f * sarea + (r + 1) * s + c + 1;
     const long long o = (long long)(f0 + f) * area + pix;
-    out[o] = c[0];
-    out[plane + o] = 0.5f * (c[1] - c[-1]);
-    out[2 * plane + o] = 0.5f * (c[s] - c[-s]);
+    out[o] = cc[0];
+    out[plane + o] = 0.5f * (cc[1] - cc[-1]);
+    out[2 * plane + o] = 0.5f * (cc[s] - cc[-s]);
   }
 }
 
@@ -167,158 +248,266 @@ __global__ void sample_patches_kernel(
 // (patch_pallas.py:253-345) together with the rest of epi_scan
 // (patch_pallas.py:382-414): the reference's mean-centering and the
 // NaN-zeroing of the segment ends.
-// Bound: operations, and those only nominally: the in-bounds steps' 8x8
-// bilinear samples and two reductions each are a few tens of MFLOP at 768
-// seeds (well under a microsecond of fp32 time), the inputs and the pixels
-// the segments touch a megabyte or two.  What a sequential scan pays is
-// the chain: one warp walking up to 100 steps, each a round trip to memory
-// and ten dependent shuffles.  The steps do not depend on each other (the
-// loop is only a running argmin), so:
-// - one block per seed; its warps split the steps, each keeping a strict-<
-//   running best (score, j) over its steps in increasing order, so the
-//   chain a warp walks is k / nw steps long and the block's warps overlap
-//   their round trips.  Each warp scores two steps (j and j + nw) at once,
-//   their loads and shuffle reductions interleaved, which halves the chain
-//   again;
-// - lanes hold K patch pixels each, with the zero-mean reference in
-//   registers: every warp loads the reference through its strides and
-//   centres it with the same shuffle sum, so all warps hold the same
-//   values; a step outside the level's margin is never better than +inf
-//   and is not sampled.  Inside the margin every tap lies inside the plane,
-//   so the taps skip bilin's clamps (the identity there) and index with
-//   32 bits: the same values, and 15.0 us against bilin's 18.5 on an H100;
-// - a block reduction in shared memory takes the smaller score and, on
-//   equal scores, the smaller j: the first minimum, as the sequential
-//   strict < and the plain version's argmin.  Every warp starts from
-//   (+inf, 0), so a seed with no in-bounds position gives (0, +inf);
-// - a seed's taps lie along one short segment (consecutive positions about
-//   0.7 px apart at the search level), so the block's reads of the
-//   L2-resident stack hit one SM's L1;
-// - seeds with 0 steps (most of the compacted batch in steady state) exit
-//   the block at once; a null `n_steps` means n_steps_max for every seed;
-//   the segment ends are read through their strides, NaN and +-inf as 0.
+// Bound: operations by the kernel table's count (the in-bounds steps' 8x8
+// bilinear samples and two reductions each: tens of MFLOP, a microsecond
+// of fp32 time at the batched step's 8,448 seeds), and in fact the
+// instructions each step must issue to keep its score bit for bit: per
+// pixel a floor, an index, 4 tap reads and the blend, per step two 5-level
+// shuffle butterflies.  Taking the tap reads and blends out of the batched
+// scan at the path's spacing cut it from 131 to 73 us and the butterflies
+// from 131 to 111 us (ablations with tools/patch_ab.py, NVIDIA H100 80GB
+// HBM3, 700 W); the L1 traffic of taps read from the stack, which reading
+// them from shared memory removes, was not what held it.  So:
+// - a warp walks its steps in chunks of consecutive steps and stages the
+//   union of a chunk's footprints once in a shared-memory tile with
+//   cp.async (all rows in flight at once): the box of the chunk's live
+//   positions' floors widened by -HALF .. +HALF + 1 (the last column and
+//   row are room for a tap whose fp32 sum x + off rounds up to the next
+//   integer), at most 32 x 32.  Each step reads its taps from the tile (row
+//   pitch 40 floats: a warp's 4 rows x 8 columns of taps fall in 32 banks).
+//   A chunk is as many steps as the tile holds at the seed's spacing, at
+//   most 32 (0.7 px, the tracking path's: 31-32); where not even two fit
+//   (over 21 px a step at HALF 4: the gate's 70 px segments of 2-4 steps),
+//   or a chunk's box exceeds the tile, the chunk reads its taps from the
+//   stack.  The tile is only another place to read the same pixels from:
+//   each pixel floors its own x + off and indexes the tile with that floor,
+//   and the blend (lerp4), the lane layout (K pixels per lane) and the
+//   warp_sum_n butterflies are the stack path's, so every step scores bit
+//   for bit alike on either path and under any split of the steps;
+// - one block per seed of W warps: 8 up to kFewSeeds seeds, 4 above (the
+//   batched step's 8,448: 4 beat 8 and 2 by 13-23%, and one seed per block
+//   beat four per block, whose blocks lived as long as their longest seed,
+//   tools/patch_ab.py on an NVIDIA H100 80GB HBM3 at 700 W).
+//   A seed's chunks are dealt to its warps in turn, the chunk length cut to
+//   ceil(k / W) so every warp has one;
+// - a seed's reads are issued at once; warp 0 loads the reference through
+//   its strides and centres it (warp shuffle sum) into shared memory for
+//   the other warps; a chunk's positions are computed once, one step per
+//   lane, and broadcast with shuffles;
+// - each warp keeps a strict-< running best (score, j) over its steps in
+//   increasing order, and the seed's warps are reduced taking the smaller
+//   score and, on equal scores, the smaller j: the first minimum, as the
+//   sequential strict < and the plain version's argmin.  Every warp starts
+//   from (+inf, 0), so a seed with no in-bounds position gives (0, +inf);
+//   a step outside the level's margin is never better than +inf and is not
+//   sampled; inside the margin every tap lies inside the plane, so the taps
+//   skip bilin's clamps (the identity there) and index with 32 bits;
+// - seeds with 0 steps (most of the compacted batch in steady state) leave
+//   at once; a null `n_steps` means n_steps_max for every seed; the segment
+//   ends are read through their strides, NaN and +-inf as 0.
 // ---------------------------------------------------------------------------
-constexpr int kScanWarps = 8;   // warps per seed; 4 ran slower on an H100
+constexpr int kScanChunk = 32;          // most steps staged at once
+constexpr int kTileRows = 32;
+constexpr int kTileCols = 32;           // one column per lane
+constexpr int kTilePitch = 40;          // 8 mod 32: 4 rows x 8 taps, 32 banks
+constexpr int kRefPad = 128;            // the largest patch the scan takes
+constexpr int kFewSeeds = 1024;         // 8 warps per seed up to here
 
 // bilin for a tap inside the plane: the same value without the clamps.
 __device__ __forceinline__ float bilin_inside(const float* __restrict__ img,
                                               int s_r, float x, float y) {
   const float x0f = floorf(x), y0f = floorf(y);
-  const float wx = x - x0f, wy = y - y0f;
   const float* row0 = img + ((int)y0f * s_r + (int)x0f);
   const float* row1 = row0 + s_r;
-  const float v00 = __ldg(row0), v01 = __ldg(row0 + 1);
-  const float v10 = __ldg(row1), v11 = __ldg(row1 + 1);
-  return (1.0f - wy) * ((1.0f - wx) * v00 + wx * v01)
-       + wy * ((1.0f - wx) * v10 + wx * v11);
+  return lerp4(__ldg(row0), __ldg(row0 + 1), __ldg(row1), __ldg(row1 + 1),
+               x - x0f, y - y0f);
 }
 
-template <int HALF>
-__global__ void __launch_bounds__(32 * kScanWarps) epi_scan_kernel(
-    const float* __restrict__ stack, long long s_b, long long s_l,
-    long long s_r64, int L, int h_true, int w_true, int n_per,
-    const int* __restrict__ lvl,
-    const float* __restrict__ uv_a, long long s_an, long long s_ac,
-    const float* __restrict__ uv_b, long long s_bn, long long s_bc,
-    const int* __restrict__ n_steps,
-    const float* __restrict__ ref, long long s_rn, long long s_rr,
-    int n_steps_max, float* __restrict__ out_t, float* __restrict__ out_s) {
+// The same read from a staged tile whose element (0, 0) is plane pixel
+// (ox, oy).
+__device__ __forceinline__ float bilin_tile(const float* tile, int ox, int oy,
+                                            float x, float y) {
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float* row0 = tile + (((int)y0f - oy) * kTilePitch + ((int)x0f - ox));
+  return lerp4(row0[0], row0[1], row0[kTilePitch], row0[kTilePitch + 1],
+               x - x0f, y - y0f);
+}
+
+// Asynchronous 4-byte copies from global to shared memory (cp.async,
+// sm_80+): a warp issues a whole tile's rows at once and waits for them
+// once, where loads into registers would wait a round trip per batch.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+struct ScanArgs {
+  const float* stack; long long s_b, s_l, s_r; int L, h_true, w_true;
+  int n_per, n; const int* lvl;
+  const float* uv_a; long long s_an, s_ac;
+  const float* uv_b; long long s_bn, s_bc;
+  const int* n_steps; const float* ref; long long s_rn, s_rr;
+  int n_steps_max; float* out_t; float* out_s;
+};
+
+template <int HALF, int W>
+__global__ void __launch_bounds__(32 * W) epi_scan_kernel(const ScanArgs a) {
   constexpr int P = 2 * HALF;
   constexpr int AREA = P * P;
   constexpr int K = (AREA + 31) / 32;      // patch pixels per lane
-  __shared__ float warp_s[kScanWarps];
-  __shared__ int warp_j[kScanWarps];
-  const long long i = blockIdx.x;
+  __shared__ float tiles[W][kTileRows * kTilePitch];
+  __shared__ float rz_s[kRefPad];
+  __shared__ float warp_s[W];
+  __shared__ int warp_j[W];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  constexpr int nw = kScanWarps;
-  const int k = min(max(n_steps == nullptr ? n_steps_max : n_steps[i], 0),
-                    n_steps_max);
+  const long long i = blockIdx.x;
+  // the seed's reads at once (a seed with no steps reads them unused)
+  const int n_i = a.n_steps == nullptr ? a.n_steps_max : a.n_steps[i];
+  const int l_i = a.lvl[i];
+  const float uax = a.uv_a[i * a.s_an], uay = a.uv_a[i * a.s_an + a.s_ac];
+  const float ubx = a.uv_b[i * a.s_bn], uby = a.uv_b[i * a.s_bn + a.s_bc];
+  const int k = min(max(n_i, 0), a.n_steps_max);
   if (k == 0) {                            // uniform across the block
-    if (threadIdx.x == 0) { out_t[i] = 0.0f; out_s[i] = INFINITY; }
+    if (threadIdx.x == 0) { a.out_t[i] = 0.0f; a.out_s[i] = INFINITY; }
     return;
   }
-  const int l = norm_level(lvl[i], L);
-  const float* img = stack + (i / n_per) * s_b + (long long)l * s_l;
-  const int s_r = (int)s_r64;
-  const float wl = (float)(w_true >> l), hl = (float)(h_true >> l);
+  const int l = norm_level(l_i, a.L);
+  const float* img = a.stack + (i / a.n_per) * a.s_b + (long long)l * a.s_l;
+  const int s_r = (int)a.s_r;
+  const float wl = (float)(a.w_true >> l), hl = (float)(a.h_true >> l);
   const float m = (float)HALF + 2.0f;
-  const float ax = finite_or_zero(uv_a[i * s_an]);
-  const float ay = finite_or_zero(uv_a[i * s_an + s_ac]);
-  const float bx = finite_or_zero(uv_b[i * s_bn]);
-  const float by = finite_or_zero(uv_b[i * s_bn + s_bc]);
+  const float ax = finite_or_zero(uax), ay = finite_or_zero(uay);
+  const float bx = finite_or_zero(ubx), by = finite_or_zero(uby);
   float rz[K], offx[K], offy[K];
-  float rsum = 0.0f;
+  if (warp == 0) {                         // the centred reference, once
+    float rsum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int pix = lane + 32 * q;
+      const int r = pix / P, c = pix % P;
+      rz[q] = pix < AREA ? a.ref[i * a.s_rn + r * a.s_rr + c] : 0.0f;
+      rsum += rz[q];
+    }
+    const float rmean = warp_sum(rsum) / (float)AREA;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (lane + 32 * q < AREA) rz_s[lane + 32 * q] = rz[q] - rmean;
+    }
+  }
+  __syncthreads();
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int pix = lane + 32 * q;
-    const int r = pix / P, c = pix % P;
-    rz[q] = pix < AREA ? ref[i * s_rn + r * s_rr + c] : 0.0f;
-    rsum += rz[q];
-    offx[q] = (float)(c - HALF);
-    offy[q] = (float)(r - HALF);
+    rz[q] = pix < AREA ? rz_s[pix] : 0.0f;
+    offx[q] = (float)(pix % P - HALF);
+    offy[q] = (float)(pix / P - HALF);
   }
-  const float rmean = warp_sum(rsum) / (float)AREA;
-#pragma unroll
-  for (int q = 0; q < K; ++q) rz[q] -= rmean;
   const float denom = (float)max(k - 1, 1);
+  // steps past the first whose footprints one tile holds at this spacing
+  const float fit = fminf(
+      (float)(kTileCols - 2 * HALF - 3) / (fabsf(bx - ax) / denom),
+      (float)(kTileRows - 2 * HALF - 3) / (fabsf(by - ay) / denom));
+  const bool tiled = fit >= 1.0f;
+  int chunk = !tiled || fit >= (float)(kScanChunk - 1) ? kScanChunk
+                                                       : 1 + (int)fit;
+  chunk = min(chunk, (k + W - 1) / W);
+  float* tile = tiles[warp];
   float best_s = INFINITY;
   int best_j = 0;
-  for (int j = warp; j < k; j += 2 * nw) {
-    const int js[2] = {j, j + nw};
-    float x[2], y[2];
-    bool live[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float t = fminf((float)js[s] / denom, 1.0f);
-      x[s] = ax * (1.0f - t) + bx * t;
-      y[s] = ay * (1.0f - t) + by * t;
-      live[s] = js[s] < k && (x[s] >= m) && (x[s] < wl - 1.0f - m)
-             && (y[s] >= m) && (y[s] < hl - 1.0f - m);
+  for (int c0 = warp * chunk; c0 < k; c0 += W * chunk) {
+    const int c1 = min(c0 + chunk, k);
+    float px = 0.0f, py = 0.0f;            // lane q places step c0 + q
+    bool pl = false;
+    if (c0 + lane < c1) {
+      const float t = fminf((float)(c0 + lane) / denom, 1.0f);
+      px = ax * (1.0f - t) + bx * t;
+      py = ay * (1.0f - t) + by * t;
+      pl = (px >= m) && (px < wl - 1.0f - m) && (py >= m)
+        && (py < hl - 1.0f - m);
     }
-    if (!live[0] && !live[1]) continue;    // uniform across the warp
-    float cur[2][K];
-    float mean[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-        cur[s][q] = live[s] && lane + 32 * q < AREA
-            ? bilin_inside(img, s_r, x[s] + offx[q], y[s] + offy[q]) : 0.0f;
-        mean[s] += cur[s][q];
+    const unsigned live_mask = __ballot_sync(kFull, pl);
+    if (live_mask == 0) continue;          // uniform across the warp
+    int ox = 0, oy = 0;
+    bool use_tile = false;
+    if (tiled) {
+      const int xl = __reduce_min_sync(kFull, pl ? (int)floorf(px) : INT_MAX);
+      const int xh = __reduce_max_sync(kFull, pl ? (int)floorf(px) : INT_MIN);
+      const int yl = __reduce_min_sync(kFull, pl ? (int)floorf(py) : INT_MAX);
+      const int yh = __reduce_max_sync(kFull, pl ? (int)floorf(py) : INT_MIN);
+      ox = xl - HALF;
+      oy = yl - HALF;
+      const int bw = xh - xl + 2 * HALF + 2, bh = yh - yl + 2 * HALF + 2;
+      use_tile = bw <= kTileCols && bh <= kTileRows;
+      if (use_tile) {
+        __syncwarp();                      // the last chunk's reads are done
+        if (lane < bw) {
+          const float* src = img + (oy * s_r + ox + lane);
+          for (int r = 0; r < bh; ++r) {
+            cp_async4(tile + r * kTilePitch + lane, src + r * s_r);
+          }
+        }
+        cp_async_wait_all();
+        __syncwarp();
       }
     }
-    warp_sum_n(mean);
-    float d2[2] = {0.0f, 0.0f};
+    for (int j = c0; j < c1; j += 2) {
+      const int js[2] = {j, j + 1};
+      float x[2], y[2];
+      bool live[2];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      mean[s] = mean[s] / (float)AREA;
+      for (int s = 0; s < 2; ++s) {
+        const int src = min(js[s] - c0, 31);
+        x[s] = __shfl_sync(kFull, px, src);
+        y[s] = __shfl_sync(kFull, py, src);
+        live[s] = js[s] < c1 && ((live_mask >> src) & 1u);
+      }
+      if (!live[0] && !live[1]) continue;  // uniform across the warp
+      float cur[2][K];
+      float mean[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        if (lane + 32 * q < AREA) {
-          const float d = (cur[s][q] - mean[s]) - rz[q];
-          d2[s] += d * d;
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          const float xx = x[s] + offx[q], yy = y[s] + offy[q];
+          cur[s][q] = live[s] && lane + 32 * q < AREA
+              ? (use_tile ? bilin_tile(tile, ox, oy, xx, yy)
+                          : bilin_inside(img, s_r, xx, yy))
+              : 0.0f;
+          mean[s] += cur[s][q];
         }
       }
-    }
-    warp_sum_n(d2);
+      warp_sum_n(mean);
+      float d2[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      if (live[s] && d2[s] < best_s) { best_s = d2[s]; best_j = js[s]; }
+      for (int s = 0; s < 2; ++s) {
+        mean[s] = mean[s] / (float)AREA;
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          if (lane + 32 * q < AREA) {
+            const float d = (cur[s][q] - mean[s]) - rz[q];
+            d2[s] += d * d;
+          }
+        }
+      }
+      warp_sum_n(d2);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (live[s] && d2[s] < best_s) { best_s = d2[s]; best_j = js[s]; }
+      }
     }
   }
-  if (lane == 0) { warp_s[warp] = best_s; warp_j[warp] = best_j; }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float bs = warp_s[0];
-    int bj = warp_j[0];
-    for (int w = 1; w < nw; ++w) {
+  if constexpr (W > 1) {
+    if (lane == 0) { warp_s[warp] = best_s; warp_j[warp] = best_j; }
+    __syncthreads();
+    if (warp != 0) return;
+    for (int w = 1; w < W; ++w) {
       const float s = warp_s[w];
       const int j = warp_j[w];
-      if (s < bs || (s == bs && j < bj)) { bs = s; bj = j; }
+      if (s < best_s || (s == best_s && j < best_j)) {
+        best_s = s;
+        best_j = j;
+      }
     }
-    out_t[i] = fminf((float)bj / denom, 1.0f);
-    out_s[i] = bs;
+  }
+  if (lane == 0) {
+    a.out_t[i] = fminf((float)best_j / denom, 1.0f);
+    a.out_s[i] = best_s;
   }
 }
 
@@ -725,6 +914,52 @@ int iclk_launch(bool window, const IclkArgs& a, void* stream) {
   }
 }
 
+// Features per block of the sampler for n features of `area` pixels: whole
+// patches in up to kSampleThreads threads, halved while that would leave
+// fewer than kMinBlocks blocks, down to 64 threads.
+int sample_per_block(int n, int area) {
+  int per_block = max(kSampleThreads / area, 1);
+  while (per_block > 1 && per_block * area > 64
+         && blocks_for(n, per_block) < (unsigned)kMinBlocks) {
+    per_block /= 2;
+  }
+  return per_block;
+}
+
+#define SAMPLE_ARGS                                                          \
+  stack, s_b, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, n, n_per, half, \
+      per_block, out
+
+template <int HALF>
+int sample_launch(bool grad, unsigned grid, int tpb, size_t smem,
+                  cudaStream_t st, const float* stack, long long s_b,
+                  long long s_l, long long s_r, int L, int H, int W,
+                  const int* lvl, const float* uv, long long s_un,
+                  long long s_uc, const unsigned char* valid, int n,
+                  int n_per, int half, int per_block, float* out) {
+  if (grad) {
+    sample_patches_kernel<HALF, true><<<grid, tpb, smem, st>>>(SAMPLE_ARGS);
+  } else {
+    sample_patches_kernel<HALF, false><<<grid, tpb, smem, st>>>(SAMPLE_ARGS);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of the scan with W warps per seed.
+template <int W>
+int epi_scan_launch(const ScanArgs& a, int half, cudaStream_t st) {
+  const unsigned grid = (unsigned)a.n;    // one block per seed
+  switch (half) {
+    case 1: epi_scan_kernel<1, W><<<grid, 32 * W, 0, st>>>(a); break;
+    case 2: epi_scan_kernel<2, W><<<grid, 32 * W, 0, st>>>(a); break;
+    case 3: epi_scan_kernel<3, W><<<grid, 32 * W, 0, st>>>(a); break;
+    case 4: epi_scan_kernel<4, W><<<grid, 32 * W, 0, st>>>(a); break;
+    case 5: epi_scan_kernel<5, W><<<grid, 32 * W, 0, st>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -735,17 +970,22 @@ int launch_sample_patches(const float* stack, long long s_b, long long s_l,
                           const unsigned char* valid, int n, int n_per,
                           int half, int grad, float* out, void* stream) {
   if (n <= 0) return 0;
-  if (n_per <= 0) return (int)cudaErrorInvalidValue;
+  if (n_per <= 0 || half < 1) return (int)cudaErrorInvalidValue;
   const int area = 4 * half * half;
-  const int tpb = area <= 64 ? 64 : 128;
-  const int per_block = tpb > area ? tpb / area : 1;
   const int side = 2 * half + 2;
-  const size_t smem = grad ? sizeof(float) * per_block * side * side : 0;
-  sample_patches_kernel<<<blocks_for(n, per_block), tpb, smem,
-                          (cudaStream_t)stream>>>(
-      stack, s_b, s_l, s_r, L, H, W, lvl, uv, s_un, s_uc, valid, n, n_per,
-      half, grad, per_block, out);
-  return (int)cudaGetLastError();
+  const int per_block = sample_per_block(n, area);
+  const int tpb = (min(per_block * area, kSampleThreads) + 31) / 32 * 32;
+  const size_t smem = grad ? per_block * (sizeof(SampleFeature)
+                                          + sizeof(float) * side * side)
+                           : 0;
+  const unsigned grid = blocks_for(n, per_block);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (half) {
+    case 1: return sample_launch<1>(grad, grid, tpb, smem, st, SAMPLE_ARGS);
+    case 2: return sample_launch<2>(grad, grid, tpb, smem, st, SAMPLE_ARGS);
+    case 4: return sample_launch<4>(grad, grid, tpb, smem, st, SAMPLE_ARGS);
+    default: return sample_launch<0>(grad, grid, tpb, smem, st, SAMPLE_ARGS);
+  }
 }
 
 int launch_epi_scan(const float* stack, long long s_b, long long s_l,
@@ -758,21 +998,12 @@ int launch_epi_scan(const float* stack, long long s_b, long long s_l,
                     float* out_t, float* out_s, void* stream) {
   if (n <= 0) return 0;
   if (n_per <= 0) return (int)cudaErrorInvalidValue;
+  const ScanArgs a{stack, s_b, s_l, s_r, L, h_true, w_true, n_per, n, lvl,
+                   uv_a, s_an, s_ac, uv_b, s_bn, s_bc, n_steps, ref, s_rn,
+                   s_rr, n_steps_max, out_t, out_s};
   cudaStream_t st = (cudaStream_t)stream;
-  constexpr int tpb = 32 * kScanWarps;
-#define EPI_SCAN_ARGS                                                        \
-  stack, s_b, s_l, s_r, L, h_true, w_true, n_per, lvl, uv_a, s_an, s_ac,    \
-      uv_b, s_bn, s_bc, n_steps, ref, s_rn, s_rr, n_steps_max, out_t, out_s
-  switch (half) {
-    case 1: epi_scan_kernel<1><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
-    case 2: epi_scan_kernel<2><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
-    case 3: epi_scan_kernel<3><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
-    case 4: epi_scan_kernel<4><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
-    case 5: epi_scan_kernel<5><<<n, tpb, 0, st>>>(EPI_SCAN_ARGS); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef EPI_SCAN_ARGS
-  return (int)cudaGetLastError();
+  return n <= kFewSeeds ? epi_scan_launch<8>(a, half, st)
+                        : epi_scan_launch<4>(a, half, st);
 }
 
 int launch_align_iclk(const float* stack, long long s_b, long long s_l,

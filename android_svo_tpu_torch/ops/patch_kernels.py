@@ -194,33 +194,42 @@ def _sample_plain_batched(stack, lvl, uv, half: int, grad: bool):
     return tuple(o.reshape(B, N, 2 * half, 2 * half) for o in out)
 
 
-def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid,
-                   n_per: int | None = None):
+def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
     """One allocation and one launch: the kernel zeroes non-finite uv, reads
     uv through its strides and takes a null `valid` as all live, so nothing
-    is converted here; inputs of another type or device raise.  A
-    (B, L, Hp, Wp) stack takes B * n_per rows, row i reading frame
-    i // n_per."""
-    n = uv.shape[0]
+    is converted here; inputs of another type or device raise.  `lvl` is
+    (N,), or (B, N) for a (B, L, Hp, Wp) stack: B * N rows, row i reading
+    frame i // N, with uv and valid of the same leading shape, read in
+    place (no view is made: each costs microseconds of host time beside a
+    launch of a few); the output is `lvl.shape + (P, P)`, with a leading 3
+    (patch, dx, dy) when grad is set."""
+    rows = lvl.shape
+    n = lvl.numel()
     p = 2 * half
     dev = stack.get_device()
     if half < 1:
         raise ValueError(f"half must be >= 1, got {half}")
-    check(uv, "uv", torch.float32, (n, 2), dev)
-    check(lvl, "lvl", torch.int32, (n,), dev)
+    if len(rows) not in (1, 2) or (len(rows) == 2 and stack.dim() == 4
+                                   and stack.shape[0] != rows[0]):
+        raise ValueError(f"lvl {tuple(rows)} is not (N,) or one row of N "
+                         f"per frame of a {tuple(stack.shape)} stack")
+    check(lvl, "lvl", torch.int32, rows, dev)
     contiguous(lvl, "lvl")
+    check(uv, "uv", torch.float32, (*rows, 2), dev)
+    su = uv.stride()
+    if len(rows) == 2 and rows[0] > 1 and su[0] != rows[1] * su[1]:
+        uv = uv.reshape(n, 2)           # frames at no common row stride
+        su = uv.stride()
     if valid is not None:
-        check(valid, "valid", torch.bool, (n,), dev)
+        check(valid, "valid", torch.bool, rows, dev)
         contiguous(valid, "valid")
-    out = torch.empty((3, n, p, p) if grad else (n, p, p),
+    out = torch.empty((3, *rows, p, p) if grad else (*rows, p, p),
                       dtype=torch.float32, device=stack.device)
     if n:
-        su = uv.stride()
         launch(LAUNCHES, "sample_patches_kernel", "launch_sample_patches",
-               *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[0],
-               su[1], None if valid is None else valid.data_ptr(), n,
-               n if n_per is None else n_per, half, int(grad),
-               out.data_ptr(), stream(dev))
+               *_stack_args(stack), lvl.data_ptr(), uv.data_ptr(), su[-2],
+               su[-1], None if valid is None else valid.data_ptr(), n,
+               rows[-1], half, int(grad), out.data_ptr(), stream(dev))
     return out
 
 
@@ -241,16 +250,14 @@ def sample_patches_batched(stack, lvl, uv, half: int, grad: bool = False,
                            valid=None, use_pallas=True):
     """sample_patches for a batch: stack (B, L, Hp, Wp), lvl (B, N), uv
     (B, N, 2), valid (B, N) or None.  Returns (B, N, P, P), or the
-    (patch, dx, dy) triple.  On CUDA one launch for all B*N features."""
-    B, N = lvl.shape
+    (patch, dx, dy) triple.  On CUDA one launch for all B*N features,
+    reading the (B, N) rows in place; a mask or level tensor whose rows
+    are not contiguous (a vmap rule's moved or expanded argument) is made
+    so."""
     if _on_card(stack, use_pallas):
-        out = _sample_kernel(
-            stack, lvl.reshape(B * N), uv.reshape(B * N, 2), half, grad,
-            None if valid is None else valid.reshape(B * N), n_per=N)
-        p = 2 * half
-        if grad:
-            return out.view(3, B, N, p, p).unbind(0)
-        return out.view(B, N, p, p)
+        out = _sample_kernel(stack, lvl.contiguous(), uv, half, grad,
+                             None if valid is None else valid.contiguous())
+        return out.unbind(0) if grad else out
     return _sample_plain_batched(stack, lvl, uv, half, grad)
 
 
@@ -276,10 +283,11 @@ def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
     On CUDA the kernel takes float32 uv (any strides; NaN and +-inf read as
     0, as the JAX kernel path's nan_to_num), int32 `lvl` and bool `valid`
     (or None: every slot live), and raises on other types; the wrapper
-    makes one allocation and one launch.  The kernel runs at the launch
-    floor (1.8 us at the sparse-align call's shapes on an NVIDIA H100 80GB
-    HBM3 at 700 W, against a bound of 0.04 us), so a call costs what the
-    host spends on it: the checks, the allocation and the ctypes call.  On
+    makes one allocation and one launch.  The kernel runs near the launch
+    floor (1.6 us at the sparse-align call's shapes against a floor of
+    1.15 us and a bound of 0.04 us on an NVIDIA H100 80GB HBM3 at 700 W),
+    so a call costs what the host spends on it: the checks, the allocation,
+    the ctypes call and the launch (tools/patch_ab.py's wrapper_split).  On
     the CPU the plain version computes every slot from uv as given.  Under
     `torch.func.vmap` the batch takes one launch (`sample_patches_batched`)."""
     out = _call(_sample_op, _sample_body, stack, lvl, uv, half, grad, valid,

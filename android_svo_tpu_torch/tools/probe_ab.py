@@ -66,29 +66,39 @@ def apply_patch(text: str, patch: str) -> str:
     return "".join(out + lines[pos:])
 
 
-def build_all(versions: dict) -> dict:
-    """{name: source text} -> {name: launch_probe_patches}, one nvcc per
-    version, all started together."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def build_versions(versions: dict, out_dir: Path, fn_names) -> dict:
+    """{name: source text} -> {name: (library, nvcc report)}: each version
+    compiled alone with the port's nvcc flags into `out_dir/lib<name>.so`,
+    one nvcc per version, all started together; the launchers `fn_names`
+    get the port's ctypes signatures."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.nvcc_path()
     procs = {}
     for name, text in versions.items():
-        cu = OUT_DIR / f"{name}.cu"
+        cu = out_dir / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_build.NVCC_FLAGS, "-shared", "-o",
-             str(OUT_DIR / f"lib{name}.so"), str(cu)],
+             str(out_dir / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
+    built = {}
     for name, proc in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
-        fn = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so")).launch_probe_patches
-        fn.argtypes = cuda_build._SIGNATURES["launch_probe_patches"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for fn_name in fn_names:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = cuda_build._SIGNATURES[fn_name]
+            fn.restype = ctypes.c_int
+        built[name] = (lib, report)
+    return built
+
+
+def build_all(versions: dict) -> dict:
+    """{name: source text} -> {name: launch_probe_patches}."""
+    built = build_versions(versions, OUT_DIR, ["launch_probe_patches"])
+    return {name: lib.launch_probe_patches for name, (lib, _) in built.items()}
 
 
 def _call(fn, img, uv, variant: str, out):

@@ -24,7 +24,12 @@ every phase passed):
                the ATen ops and device activities one call of each kernel's
                wrapper dispatches (at most 4 for the sampler, 3 for the
                other patch kernels and the dump, 1 for the probe; exactly 1
-               device activity).
+               device activity).  Two forms the gate's calls leave out are
+               held to its bounds and timed too (tools/patch_ab.py): the
+               sampler's 4x4 gradient form on the substack (sparse
+               alignment's reference patches) and the scan at the tracking
+               path's 0.7 px spacing (100 steps a seed), with the mean
+               spacing of both scan forms.
   3b. probe  — probe_patches_kernel variants A-D against their plain version
                (<= 1e-5; the kernel is bit-exact, and the line says whether
                it was) and variant A against interp.extract_patches
@@ -97,7 +102,8 @@ every phase passed):
                bit, origins equal, dead rows zero), bit for bit the 11
                single launches, one launch and one device activity per
                call; the dump's 3-D grid_sample on the 11 stacks timed
-               beside it; (b) 11 sequences (their
+               beside it; phase 3's two extra forms batched, held and
+               timed the same way; (b) 11 sequences (their
                own textures, seeds 0-10, and orbits) bootstrapped each in
                its own FrameHandler at the default SVOConfig(), stacked,
                and tracked by make_batched_track for 30 frames: 0
@@ -174,9 +180,9 @@ KERNEL_META = {
         "android_svo_tpu/ops/patch_pallas.py:720 (dump_windows)"),
 }
 # the README's slice of the port that made each kernel what it is now
-REDESIGNED_IN = {"sample_patches_kernel": "slice 3",
+REDESIGNED_IN = {"sample_patches_kernel": "slice 11",
                  "align_iclk_window_kernel": "slice 3",
-                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 4",
+                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 11",
                  "probe_patches_kernel": "slice 5",
                  "dump_windows_kernel": "slice 9"}
 # the window dump runs only through the public dump_windows: no tracking
@@ -260,35 +266,19 @@ def bound(bytes_moved, flops):
             int(bytes_moved), int(flops))
 
 
-def kernel_bounds(x, pk):
-    """Least time for each kernel's work on this run's inputs: every input
-    byte read once (for the image, only the pixels the patches touch, capped
-    at the planes' size), every output byte written once, and the fp32
-    operations the data needs (bilinear sample ~11 flops/px; the scan and
-    ICLK loops counted with this run's step and update counts)."""
+def scan_bound(x, n_steps):
+    """Least time for the scan's work on x's segments with `n_steps`
+    positions each: a live step inside the level's margin samples and
+    scores the patch (~15 flops per pixel); the others are only placed and
+    tested (~10 flops); the reference is centred once.  Bytes: the distinct
+    pixels the scored steps' 9x9 footprints touch, the inputs read once, the
+    outputs written once."""
     import torch
     n = int(x["lvl"].shape[0])
     h, w = x["h"], x["w"]
-    planes = 4 * sum((h >> l) * (w >> l) for l in range(3))
-    out = {}
-    # sample: 4x4 patches on the level-2 substack (the GN-iteration call)
-    sub_bytes = 4 * (h >> 2) * (w >> 2)
-    touched = min(n * 5 * 5 * 4, sub_bytes)
-    out["sample_patches_kernel"] = bound(
-        touched + n * (4 + 8 + 1) + n * 16 * 4, n * 16 * 11)
-    # the 1D alignment's sampler: 8x8 patches (9x9 footprints) of the live
-    # features at their levels; every slot's patch is written
-    live = int(x["valid_mixed"].sum())
-    out["sample_patches_kernel/align1d"] = bound(
-        min(live * 9 * 9 * 4, planes) + n * (4 + 8 + 1) + n * 64 * 4,
-        live * 64 * 11)
-    # epi_scan: a live step inside the level's margin samples and scores
-    # the patch (~15 flops per pixel); the others are only placed and
-    # tested (~10 flops); the reference is centred once.  Bytes: the
-    # distinct pixels the scored steps' 9x9 footprints touch.
     stack = x["stack"]
     L, hp, wp = stack.shape
-    k = torch.clamp(x["nsteps"].long(), 0, 100)
+    k = torch.clamp(n_steps.long(), 0, 100)
     j = torch.arange(100, device=k.device)
     t = torch.clamp(j[None] / torch.clamp(k - 1, min=1)[:, None], max=1.0)
     pos = (x["uv_a"][:, None] * (1 - t[..., None])
@@ -307,9 +297,99 @@ def kernel_bounds(x, pk):
     mask[((lvl[scored][:, None, None] * hp + rows) * wp + cols)
          .reshape(-1)] = True
     n_scored = int(scored.sum())
-    out["epi_scan_kernel"] = bound(
+    return bound(
         int(mask.sum()) * 4 + n * (64 * 4 + 16 + 4 + 4) + n * 8,
         n_scored * 64 * 15 + int(k.sum()) * 10 + n * 64 * 2)
+
+
+def scan_spacing(x, patch_ab):
+    """The mean distance between a seed's consecutive scan positions, in
+    level pixels, of the gate's scan and of its /path form, as a line."""
+    steps = {"gate": x["nsteps"],
+             "path": patch_ab.path_steps(x["uv_a"], x["uv_b"])}
+    return "scan spacing, mean level px between positions: " + ", ".join(
+        f"{k} {patch_ab.mean_spacing(x['uv_a'], x['uv_b'], v):.4f}"
+        for k, v in steps.items())
+
+
+def check_forms(calls, valid):
+    """Kernel against plain version for `calls` (name -> fn(use_pallas),
+    single or batched) with the kernel gate's bounds: patches within 0.02
+    on the live slots of `valid`; the scan's score within 2.0 where both
+    are finite, at least 80% of seeds finite, and best_t within 1e-3 but on
+    at most 1% of seeds within one step (1/99): at the path's 0.7 px two
+    neighbouring positions score within rounding of each other, and the
+    plain version rounds the blend apart from the kernel (which matches the
+    parent's kernel bit for bit, tools/patch_ab.py).  Returns {name: max
+    |d|}; raises CheckFailed beyond a bound."""
+    import torch
+    live = valid.reshape(-1)
+    errs = {}
+    for name, fn in calls.items():
+        k, p = fn(True), fn(False)
+        k = k if isinstance(k, tuple) else (k,)
+        p = p if isinstance(p, tuple) else (p,)
+        if name.startswith("epi_scan_kernel"):
+            (tk, sk), (tp, sp) = ([o.reshape(-1) for o in out]
+                                  for out in (k, p))
+            fin = torch.isfinite(sk) & torch.isfinite(sp)
+            require(int(fin.sum()) >= 0.8 * fin.numel(),
+                    f"{name}: only {int(fin.sum())}/{fin.numel()} finite")
+            dts = (tk - tp)[fin].abs()
+            dt = float(dts.max())
+            ds = float((sk - sp)[fin].abs().max())
+            moved = int((dts > 1e-3).sum())
+            require(dt <= 1.0 / 99 + 1e-6 and moved <= 0.01 * fin.numel()
+                    and ds <= 2.0,
+                    f"{name}: best_t max|d| {dt} ({moved} seeds past 1e-3), "
+                    f"score max|d| {ds}")
+            errs[name] = max(dt, ds)
+            if moved:
+                log(f"{name}: {moved} of {fin.numel()} seeds pick a step "
+                    f"next to the plain version's (scores within {ds:.4f})")
+        else:
+            d = max(float((a.reshape(live.numel(), -1)[live]
+                           - b.reshape(live.numel(), -1)[live]).abs().max())
+                    for a, b in zip(k, p))
+            require(d <= 0.02, f"{name}: max|d| {d} > 0.02")
+            errs[name] = d
+    return errs
+
+
+def kernel_bounds(x, pk):
+    """Least time for each kernel's work on this run's inputs: every input
+    byte read once (for the image, only the pixels the patches touch, capped
+    at the planes' size), every output byte written once, and the fp32
+    operations the data needs (bilinear sample ~11 flops/px; the scan and
+    ICLK loops counted with this run's step and update counts)."""
+    import torch
+    from android_svo_tpu_torch.tools import patch_ab
+    n = int(x["lvl"].shape[0])
+    h, w = x["h"], x["w"]
+    stack = x["stack"]
+    L, hp, wp = stack.shape
+    planes = 4 * sum((h >> l) * (w >> l) for l in range(3))
+    out = {}
+    # sample: 4x4 patches on the level-2 substack (the GN-iteration call)
+    sub_bytes = 4 * (h >> 2) * (w >> 2)
+    touched = min(n * 5 * 5 * 4, sub_bytes)
+    out["sample_patches_kernel"] = bound(
+        touched + n * (4 + 8 + 1) + n * 16 * 4, n * 16 * 11)
+    # the 1D alignment's sampler: 8x8 patches (9x9 footprints) of the live
+    # features at their levels; every slot's patch is written
+    live = int(x["valid_mixed"].sum())
+    out["sample_patches_kernel/align1d"] = bound(
+        min(live * 9 * 9 * 4, planes) + n * (4 + 8 + 1) + n * 64 * 4,
+        live * 64 * 11)
+    # sparse alignment's reference patches: 4x4 with gradients on the
+    # substack, a 6x6 grid of samples (7x7 pixels) per feature, the patch
+    # and both differences written
+    out["sample_patches_kernel/ref_grad"] = bound(
+        min(n * 7 * 7 * 4, sub_bytes) + n * (4 + 8 + 1) + 3 * n * 16 * 4,
+        n * (36 * 11 + 16 * 4))
+    out["epi_scan_kernel"] = scan_bound(x, x["nsteps"])
+    out["epi_scan_kernel/path"] = scan_bound(
+        x, patch_ab.path_steps(x["uv_a"], x["uv_b"]))
     # ICLK: patch footprint with the +-2 px start offset.  Both kernels
     # form the Hessian and its inverse themselves (~8 flops per template
     # pixel plus the 3x3 inverse; no hinv read) and write uv, mean and
@@ -335,11 +415,12 @@ def kernel_bounds(x, pk):
     sx = org[live, 0].long().clamp(0, wp - pk.DUMP_WC)
     sy = org[live, 1].long().clamp(0, hp - pk.DUMP_WR)
     lv = x["lvl"][live].long().clamp(0, L - 1)
-    rows = sy[:, None, None] + torch.arange(pk.DUMP_WR, device=k.device)[
+    dev = stack.device
+    rows = sy[:, None, None] + torch.arange(pk.DUMP_WR, device=dev)[
         None, :, None]
-    cols = sx[:, None, None] + torch.arange(pk.DUMP_WC, device=k.device)[
+    cols = sx[:, None, None] + torch.arange(pk.DUMP_WC, device=dev)[
         None, None, :]
-    seen = torch.zeros(L * hp * wp, dtype=torch.bool, device=k.device)
+    seen = torch.zeros(L * hp * wp, dtype=torch.bool, device=dev)
     seen[((lv[:, None, None] * hp + rows) * wp + cols).reshape(-1)] = True
     out[DUMP] = bound(int(seen.sum()) * 4 + n * (4 + 8 + 1)
                       + n * (pk.DUMP_WR * pk.DUMP_WC * 4 + 8), 0)
@@ -501,10 +582,11 @@ def profiled_dispatch(fn, counts, name, what, attempts=6):
     record now and then (three times running in one run on an H100)."""
     import torch
     from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    kernel = name.split("/")[0]            # a form's kernel
     for attempt in range(attempts):
-        before = counts[name]
+        before = counts[kernel]
         n_ops, n_dev = dispatch_counts(fn)
-        if n_dev or counts[name] == before:
+        if n_dev or counts[kernel] == before:
             break
         log(f"dispatch {name} ({what}): the kernel launched but the profile "
             f"recorded no device activity (attempt {attempt + 1}); "
@@ -987,6 +1069,7 @@ def batched_phase(dev, label, workdir):
     from android_svo_tpu_torch.parallel.ba import local_ba
     from android_svo_tpu_torch.parallel.mesh import mesh_shape
     from android_svo_tpu_torch.parallel.multi_seq import make_batched_track
+    from android_svo_tpu_torch.tools import patch_ab
     from android_svo_tpu_torch.tools.sharded_rank import (config_arrays,
                                                            spawn_ranks)
     from android_svo_tpu_torch.utils.checkpoint import save_state
@@ -1007,8 +1090,31 @@ def batched_phase(dev, label, workdir):
              for k, v in gate.detail.items()}))
     require(gate.ok, f"batched kernel gate failed: {gate.failures}")
     calls = silicon_gate.batched_kernel_calls(xb)
+    # phase 3's two extra forms, batched: the gate's bounds against the
+    # batched plain version, each frame bit for bit its single launch
+    extra = patch_ab.extra_calls(xb, batched=True)
+    gate.max_abs_err.update(check_forms(extra, xb["valid"]))
+    for name, fn in extra.items():
+        before = pk.LAUNCHES[silicon_gate.kernel_of(name)]
+        out = fn(True)
+        require(pk.LAUNCHES[silicon_gate.kernel_of(name)] - before == 1,
+                f"batched {name}: more than one launch for a batch")
+        out = out if isinstance(out, tuple) else (out,)
+        for b, x in enumerate(frames):
+            one = patch_ab.extra_calls(x)[name](True)
+            one = one if isinstance(one, tuple) else (one,)
+            require(all(silicon_gate.same_bits(o[b], s1)
+                        for o, s1 in zip(out, one)),
+                    f"batched {name}: frame {b} differs from its single "
+                    f"launch")
+    calls.update(extra)
+    log(f"batched extra forms B={N_SEQ}: 1 launch each, each frame bit for "
+        f"bit its single launch, max |d| vs plain "
+        f"{json.dumps({k: gate.max_abs_err[k] for k in extra})}; "
+        f"{scan_spacing(xb, patch_ab)} [{label}]")
     bounds = batched_bounds(frames, pk)
-    names = ("sample_patches_kernel", "epi_scan_kernel", "align_iclk_kernel",
+    names = ("sample_patches_kernel", "sample_patches_kernel/ref_grad",
+             "epi_scan_kernel", "epi_scan_kernel/path", "align_iclk_kernel",
              "align_iclk_window_kernel", DUMP)
     # every dispatch profile before any timing profile, as in phase 3 (a
     # device-only profile just before has left the next one without device
@@ -1036,16 +1142,17 @@ def batched_phase(dev, label, workdir):
         k_ms = time_ms(lambda: fn(True))
         p_ms = time_ms(lambda: fn(False), iters=5, warmup=1)
         d_ms = device_ms(lambda: fn(True), kernel)
-        singles = [silicon_gate.gate_calls(x)[name] for x in frames]
+        singles = [{**silicon_gate.gate_calls(x),
+                    **patch_ab.extra_calls(x)}[name] for x in frames]
         s_ms = time_ms(lambda: [c(True) for c in singles], iters=10)
-        forms[kernel] = {
+        forms[name] = {
             "ms": k_ms, "kernel_ms": d_ms, "plain_ms": p_ms,
             "singles_ms": s_ms, "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "host_ops_per_call": n_ops,
-            "max_abs_err": gate.max_abs_err.get(kernel, 0.0),
+            "max_abs_err": gate.max_abs_err.get(name, 0.0),
             "launches_per_call": 1,
-            "library_ms": lib.get(kernel, (None, None))[0],
-            "library_kernel_ms": lib.get(kernel, (None, None))[1]}
+            "library_ms": lib.get(name, (None, None))[0],
+            "library_kernel_ms": lib.get(name, (None, None))[1]}
         log(f"batched {name} B={N_SEQ}: wrapper {k_ms:.4f} ms, device "
             f"{'n/a' if d_ms is None else f'{d_ms:.4f}'} ms, plain "
             f"{p_ms:.4f} ms, {N_SEQ} single launches {s_ms:.4f} ms, bound "
@@ -1532,7 +1639,8 @@ def main() -> int:
     from android_svo_tpu_torch.ops import cuda_build, interp, silicon_gate
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.tools import microbench_gather, reloc_demo
+    from android_svo_tpu_torch.tools import (microbench_gather, patch_ab,
+                                             reloc_demo)
     from android_svo_tpu_torch.utils.profiling import device_ms
 
     dev = torch.device("cuda")
@@ -1561,6 +1669,16 @@ def main() -> int:
                                    else v) for k, v in gate.detail.items()}))
     require(gate.ok, f"kernel gate failed: {gate.failures}")
     calls = silicon_gate.kernel_calls(x)
+    # two forms the gate's own calls leave out (tools/patch_ab.py): the
+    # sampler's gradient form on sparse alignment's substack (its reference
+    # patches) and the scan on the gate's segments at the tracking path's
+    # spacing, held to the gate's bounds and timed with the rest
+    extra = patch_ab.extra_calls(x)
+    gate.max_abs_err.update(check_forms(extra, x["valid"]))
+    calls.update(extra)
+    log(f"extra forms vs plain (max |d|): "
+        f"{json.dumps({k: gate.max_abs_err[k] for k in extra})}; "
+        f"{scan_spacing(x, patch_ab)} [{label}]")
     bounds = kernel_bounds(x, pk)
     lib_ms = {"sample_patches_kernel": library_sample_ms(x),
               "sample_patches_kernel/align1d": library_align1d_ms(x)}
@@ -1582,6 +1700,8 @@ def main() -> int:
             ("8x8 with gradients, valid=None", 4,
              lambda: pk.sample_patches(x["stack"], x["lvl"], x["uv"], 4,
                                        grad=True)),
+            ("4x4 with gradients on the level-2 substack", 4,
+             lambda: calls["sample_patches_kernel/ref_grad"](True)),
             ("8x8 at mixed levels with a valid mask (align1d)", 4,
              lambda: calls["sample_patches_kernel/align1d"](True))],
         "align_iclk_window_kernel": [
@@ -1594,6 +1714,8 @@ def main() -> int:
              lambda: calls["align_iclk_kernel"](True))],
         "epi_scan_kernel": [
             ("8x8, 2-99 steps", 3, lambda: calls["epi_scan_kernel"](True)),
+            ("8x8, the path's spacing", 3,
+             lambda: calls["epi_scan_kernel/path"](True)),
             ("n_steps_each=None", 3,
              lambda: pk.epi_scan(x["stack"], x["lvl"], x["uv_a"], x["uv_b"],
                                  x["ref"], 100, half=4, h=x["h"],
@@ -2037,11 +2159,14 @@ def main() -> int:
                     "ms": f_ms, "kernel_ms": f_d_ms, "plain_ms": f_p_ms,
                     "bound_ms": bounds[form][0], "bound_by": bounds[form][1],
                     "max_abs_err": gate.max_abs_err.get(form, 0.0),
-                    "max_abs_err_752x480": ds["gate_err"].get(form, 0.0),
+                    "max_abs_err_752x480": ds["gate_err"].get(form),
                     "library_ms": lib_ms.get(form, (None, None))[0],
                     "library_kernel_ms": lib_ms.get(form, (None, None))[1]}
-        # the batched form: one launch for the 11 frames of phase 10a
-        forms[f"batched_b{N_SEQ}"] = bt["kernels"][name]
+        # the batched forms: one launch for the 11 frames of phase 10a
+        for form, rec in bt["kernels"].items():
+            if form == name or form.startswith(name + "/"):
+                forms["_".join([f"batched_b{N_SEQ}"] + form.split("/")[1:])] \
+                    = rec
         kernels[-1]["forms"] = forms
     # the window dump: its path is phase 11's public dump_windows; every
     # tracking path holds it at 0 launches

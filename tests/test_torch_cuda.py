@@ -41,11 +41,15 @@ def test_kernel_gate(problem):
                                   "align_iclk_window_kernel",
                                   "sample_patches_kernel/align1d",
                                   "align_iclk_window_kernel/ungated",
-                                  "dump_windows_kernel"])
+                                  "dump_windows_kernel",
+                                  "sample_patches_kernel/ref_grad",
+                                  "epi_scan_kernel/path"])
 def test_wrapper_launches_and_counts(problem, name):
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
-    call = silicon_gate.kernel_calls(problem)[name]
+    from android_svo_tpu_torch.tools import patch_ab
+    call = {**silicon_gate.kernel_calls(problem),
+            **patch_ab.extra_calls(problem)}[name]
     kernel = silicon_gate.kernel_of(name)
     pk.reset_launch_counts()
     call(False)                                  # plain version: no launch
@@ -402,11 +406,10 @@ def test_align_nonfinite_start_never_converges(problem):
 
 def test_scan_first_minimum_and_empty_seeds(card):
     """The CPU test's flat-stack problem on the card: every in-bounds step
-    scores exactly 0, so the tied steps lie on all of the block's warps and
-    the first one must win the block reduction (j = 4 of 21 against warp
-    0's j = 8; j = 13 of 30, a warp's second step of its first iteration;
-    j = 5 of 41 on level 1), and seeds with no in-bounds position or 0 steps
-    give (0, +inf), as the plain version."""
+    scores exactly 0, so the tied steps lie on several of the seed's warps
+    and the first one must win the reduction across them (j = 4 of 21;
+    j = 13 of 30; j = 5 of 41 on level 1), and seeds with no in-bounds
+    position or 0 steps give (0, +inf), as the plain version."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     h, w = 240, 320
     flat = torch.zeros((3, h, w), device=card)
@@ -653,7 +656,8 @@ def batched_problem(card):
 BATCHED_FORMS = ["sample_patches_kernel", "sample_patches_kernel/grad",
                  "sample_patches_kernel/align1d", "epi_scan_kernel",
                  "align_iclk_kernel", "align_iclk_window_kernel",
-                 "align_iclk_window_kernel/ungated", "dump_windows_kernel"]
+                 "align_iclk_window_kernel/ungated", "dump_windows_kernel",
+                 "sample_patches_kernel/ref_grad", "epi_scan_kernel/path"]
 
 
 @pytest.mark.parametrize("name", BATCHED_FORMS)
@@ -662,16 +666,19 @@ def test_batched_kernel_matches_single_launches(batched_problem, name):
     frame's own single launch bit for bit."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.tools import patch_ab
     frames, xb = batched_problem
     kernel = silicon_gate.kernel_of(name)
-    call = silicon_gate.batched_kernel_calls(xb)[name]
+    call = {**silicon_gate.batched_kernel_calls(xb),
+            **patch_ab.extra_calls(xb, batched=True)}[name]
     pk.reset_launch_counts()
     out = call(True)
     torch.cuda.synchronize()
     assert pk.LAUNCHES[kernel] == 1
     out = out if isinstance(out, tuple) else (out,)
     for b, x in enumerate(frames):
-        single = silicon_gate.gate_calls(x)[name](True)
+        single = {**silicon_gate.gate_calls(x),
+                  **patch_ab.extra_calls(x)}[name](True)
         single = single if isinstance(single, tuple) else (single,)
         for o, s in zip(out, single):
             assert silicon_gate.same_bits(o[b], s), (name, b)
@@ -778,3 +785,224 @@ def test_batched_dump_checks_before_launch(batched_problem, bad):
         pk.dump_windows_batched(stack, lvl, uv, valid)
     torch.cuda.synchronize()
     assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# the sampler and the scan as redesigned for the batched step: staged
+# footprints and tiles, the launch geometry chosen from the row count
+# ---------------------------------------------------------------------------
+
+def _border_uv(n, h, w, seed, device):
+    """(n, 2) uv: a quarter inside the plane, the rest wholly or partly off
+    each of its four borders, with NaN, +-inf and +-1e6 planted."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 2), generator=g)
+    side = torch.randint(0, 5, (n,), generator=g)
+    x = u[:, 0] * w
+    y = u[:, 1] * h
+    off = torch.rand((n,), generator=g) * 14.0 - 4.0   # -4 .. 10 px out
+    x = torch.where(side == 1, -off, x)
+    x = torch.where(side == 2, w - 1 + off, x)
+    y = torch.where(side == 3, -off, y)
+    y = torch.where(side == 4, h - 1 + off, y)
+    uv = torch.stack([x, y], -1)
+    uv[3::11, 0] = float("nan")
+    uv[4::13, 1] = float("inf")
+    uv[5::17] = float("-inf")
+    uv[6::19, 0] = 1e6
+    uv[7::23, 1] = -1e6
+    return uv.to(device)
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4])
+@pytest.mark.parametrize("grad", [False, True])
+def test_sampler_off_borders_matches_plain(problem, half, grad):
+    """Features wholly and partly off every border of the gate's planes,
+    and non-finite or huge uv: the kernel blends the taps the plain version
+    clamps to (within 1e-3: the two round the blend apart; the gradient
+    form also samples at uv + off + -1 rounded once), zeros for dead slots,
+    at the template half sizes (1, 2, 4) and the run-time one (3)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    stack = x["stack"]
+    n = 613
+    h, w = stack.shape[1:]
+    uv = _border_uv(n, h, w, half, stack.device)
+    lvl = (torch.arange(n, device=stack.device) % 7 - 3).to(torch.int32)
+    valid = torch.arange(n, device=stack.device) % 9 != 4
+    k = pk.sample_patches(stack, lvl, uv, half, grad=grad, valid=valid)
+    p = pk.sample_patches(stack, lvl, _nan0(uv), half, grad=grad,
+                          use_pallas=False)
+    torch.cuda.synchronize()
+    k = k if grad else (k,)
+    p = p if grad else (p,)
+    for a, b in zip(k, p):
+        assert a.shape == (n, 2 * half, 2 * half)
+        assert float((a[valid] - b[valid]).abs().max()) <= 1e-3
+        assert not a[~valid].any()
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4])
+def test_sampler_staged_taps_equal_the_stack_reads(problem, half):
+    """The gradient form's patch plane is sampled with bilin from the stack
+    at the very coordinates the plain form blends from its staged
+    footprint: the two are equal bit for bit, off the borders and at
+    non-finite uv too."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    stack = x["stack"]
+    h, w = stack.shape[1:]
+    uv = _border_uv(1001, h, w, 10 + half, stack.device)
+    lvl = (torch.arange(1001, device=stack.device) % 3).to(torch.int32)
+    patch = pk.sample_patches(stack, lvl, uv, half)
+    patch_g, _, _ = pk.sample_patches(stack, lvl, uv, half, grad=True)
+    torch.cuda.synchronize()
+    assert torch.equal(patch, patch_g)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8449])
+def test_sampler_rows_around_the_block_size(problem, n):
+    """Row counts of one, of a part of a block and just past the batched
+    step's 8,448 (528 blocks of 16 4x4 features): the 4x4 and 8x8 forms
+    against the plain version, and a batch of two frames, one a stride-0
+    shared stack, each frame bit for bit its single launch."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    stack = x["stack"]
+    h, w = stack.shape[1:]
+    g = torch.Generator().manual_seed(n)
+    uv = (torch.rand((n, 2), generator=g) * torch.tensor([w - 1.0, h - 1.0])
+          ).to(stack.device)
+    lvl = torch.randint(0, 3, (n,), generator=g).to(stack.device,
+                                                    torch.int32)
+    valid = (torch.rand((n,), generator=g) < 0.9).to(stack.device)
+    for half in (2, 4):
+        k = pk.sample_patches(stack, lvl, uv, half, valid=valid)
+        p = pk.sample_patches(stack, lvl, uv, half, use_pallas=False)
+        torch.cuda.synchronize()
+        assert float((k[valid] - p[valid]).abs().max()) <= 1e-3
+        for stk in (torch.stack([stack, stack.flip(-1).contiguous()]),
+                    stack.expand(2, *stack.shape)):
+            pk.reset_launch_counts()
+            kb = pk.sample_patches_batched(stk, torch.stack([lvl, lvl]),
+                                           torch.stack([uv, uv.flip(0)]),
+                                           half, valid=torch.stack(
+                                               [valid, valid]))
+            torch.cuda.synchronize()
+            assert pk.LAUNCHES["sample_patches_kernel"] == 1
+            assert torch.equal(kb[0], pk.sample_patches(
+                stk[0], lvl, uv, half, valid=valid))
+            assert torch.equal(kb[1], pk.sample_patches(
+                stk[1], lvl, uv.flip(0), half, valid=valid))
+
+
+def _exact_segment(x0, y0, k, dx):
+    """Segment ends whose k positions are exact in fp32 whatever the
+    rounding: k - 1 a power of two and a step of dx px along x."""
+    a = torch.tensor([x0, y0])
+    return a, a + torch.tensor([dx * (k - 1), 0.0])
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4, 5])
+def test_scan_tile_reads_equal_the_stack_reads(problem, half):
+    """One seed's 65 steps at 0.5 px (its steps read from staged tiles)
+    against 65 one-step seeds at the same positions with a far segment end
+    (spacing past the tile: read from the stack): the seed's best score is
+    bit for bit the least of theirs and its step the first that reaches
+    it; a seed at 35 px spacing (the stack path) agrees with the plain
+    version."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    stack, dev = x["stack"], x["stack"].device
+    p = 2 * half
+    a, b = _exact_segment(40.0, 61.25, 65, 0.5)
+    pos = a + torch.arange(65)[:, None] * torch.tensor([0.5, 0.0])
+    ua = torch.cat([a[None], pos, torch.tensor([[30.0, 80.0]])]).to(dev)
+    ub = torch.cat([b[None], pos + 1000.0,
+                    torch.tensor([[100.0, 80.0]])]).to(dev)
+    ns = torch.tensor([65] + [1] * 65 + [3], dtype=torch.int32, device=dev)
+    lvl = torch.zeros((67,), dtype=torch.int32, device=dev)
+    ref = pk.sample_patches(stack, lvl[:1], torch.tensor(
+        [[52.3, 60.7]], device=dev), half).expand(67, p, p)
+    t, s = pk.epi_scan(stack, lvl, ua, ub, ref, 65, half=half,
+                       n_steps_each=ns)
+    torch.cuda.synchronize()
+    singles = s[1:66]
+    j = int((singles == singles.min()).nonzero()[0, 0])
+    assert torch.equal(s[0], singles.min())
+    assert float(t[0]) == j / 64
+    tp, sp = pk.epi_scan(stack, lvl, ua, ub, ref, 65, half=half,
+                         n_steps_each=ns, use_pallas=False)
+    assert float(t[66]) == float(tp[66])
+    assert abs(float(s[66]) - float(sp[66])) <= 2.0
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [5, 1030])
+def test_scan_first_minimum_across_the_split(card, n, half):
+    """n seeds on a flat stack, where every in-bounds step scores exactly
+    0, so the first in-bounds step must win across the seed's warps and
+    chunks (8 warps per seed at 5 seeds, 4 at 1,030: past the 1,024 of the
+    8-warp launch), at every patch size.  Segments start off the level and
+    walk in (so the winner lies in a later chunk), stay off it, or start
+    inside it; seeds with 0 or 1 step sit among them.  Every position is exact in fp32
+    (k - 1 a power of two, quarter-pixel starts, half-pixel steps), so the
+    plain version's margins cut at the same steps: equal bit for bit."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    h, w = 240, 320
+    flat = torch.zeros((3, h, w), device=card)
+    i = torch.arange(n)
+    k = torch.tensor([0, 17, 33, 65, 1])[i % 5]
+    vertical = (i // 5) % 2 == 1
+    start = -9.0 + (i % 13).float() * 0.75 + (i % 4 == 3).float() * 30.0
+    across = 60.0 + (i % 3).float()
+    ua = torch.where(vertical[:, None], torch.stack([across, start], -1),
+                     torch.stack([start, across], -1))
+    step = torch.where(vertical[:, None], torch.tensor([0.0, 0.5]),
+                       torch.tensor([0.5, 0.0]))
+    ub = ua + step * torch.clamp(k - 1, min=0)[:, None].float()
+    lvl = (i % 2).to(torch.int32)
+    ns = k.to(torch.int32)
+    args = [t.to(card) for t in (lvl, ua, ub)]
+    ref = torch.zeros((n, 2 * half, 2 * half), device=card)
+    got = pk.epi_scan(flat, *args, ref, 100, half=half,
+                      n_steps_each=ns.to(card), h=h, w=w)
+    want = pk.epi_scan(flat, *args, ref, 100, half=half,
+                       n_steps_each=ns.to(card), h=h, w=w, use_pallas=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(want[1]).any()) and bool((want[0] > 0).any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("spacing", [0.7, 35.0])
+def test_scan_spacings_match_plain(problem, spacing):
+    """The gate's seeds with every segment cut to `spacing` px between
+    positions (0.7: the path's, each step read from a tile; 35: the stack
+    path), held to the gate's bounds, and 1,031 seeds (4 warps per seed)
+    equal row for row to the same seeds in one launch of 768 and one of
+    263 (8 warps per seed)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = problem
+    d = torch.linalg.norm(x["uv_b"] - x["uv_a"], dim=-1)
+    ns = torch.clamp((d / spacing).to(torch.int32) + 1, 2, 100).to(
+        torch.int32)
+    args = (x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100)
+    kw = dict(half=4, n_steps_each=ns, h=x["h"], w=x["w"])
+    tk, sk = pk.epi_scan(*args, **kw)
+    tp, sp = pk.epi_scan(*args, **kw, use_pallas=False)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(sk) & torch.isfinite(sp)
+    assert int(fin.sum()) >= 0.8 * fin.numel()
+    assert float((tk - tp)[fin].abs().max()) <= 1e-3
+    assert float((sk - sp)[fin].abs().max()) <= 2.0
+    rep = [t.repeat((5,) + (1,) * (t.dim() - 1))[:1031]
+           for t in (x["lvl"], x["uv_a"], x["uv_b"], x["ref"], ns)]
+    big = pk.epi_scan(x["stack"], *rep[:4], 100, half=4, n_steps_each=rep[4],
+                      h=x["h"], w=x["w"])
+    parts = [pk.epi_scan(x["stack"], *(t[lo:hi] for t in rep[:4]), 100,
+                         half=4, n_steps_each=rep[4][lo:hi], h=x["h"],
+                         w=x["w"]) for lo, hi in ((0, 768), (768, 1031))]
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert torch.equal(big[i], torch.cat([p[i] for p in parts]))
