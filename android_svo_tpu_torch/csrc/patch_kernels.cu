@@ -37,6 +37,7 @@
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <type_traits>
 
 namespace {
 
@@ -522,15 +523,24 @@ __global__ void __launch_bounds__(32 * W) epi_scan_kernel(const ScanArgs a) {
 // (patch_pallas.py:667-717) together with the whole of align_iclk_mxu
 // (patch_pallas.py:779-874): its Hessian and inverse, the window origin, the
 // one-hot ICLK, the convergence test and the two appearance gates.
-// Bound: latency.  The bytes are the templates and gradients (768 B per 8x8
-// feature) and the pixels the iterations touch; the work is <= 11 dependent
-// 8x8 samples per feature.  The caller pays for the host work around the
-// launch, so each kernel takes its whole function and the wrapper only
+// Bound: the instructions each sample issues, and latency at few rows.
+// The bytes are the templates and gradients (768 B per 8x8 feature) and the
+// pixels the iterations touch (0.34 us at 768 features, 3.7 us at the
+// batched step's 8,448); the work is <= 11 dependent 8x8 samples per
+// feature (4.9 updates on average on the batched gate problem), each per
+// pixel a floor, 4 tap reads and the blend, then a shuffle reduction of
+// the three sums and the 3x3 step.  The one-warp-a-feature layout of 768
+// rows took 8.4-8.9 us there and 25-29 us at 8,448 rows (2.0-2.3 waves of
+// 7-8 blocks of 128 threads per SM), its time growing with the rows past
+// one wave; packing alone, half the waves, did not move it: the issue rate
+// of that per-pixel work, not residency, held it (tools/patch_ab.py,
+// NVIDIA H100 80GB HBM3, 700 W).  The caller pays for the host work around
+// the launch, so each kernel takes its whole function and the wrapper only
 // allocates the three outputs:
 // - H = J^T J + 1e-6 I over (gx, gy, 1) and its inverse by the explicit
 //   Cholesky with pivot floor 1e-20 of geometry/linsolve.py (same order of
 //   operations), so near-singular features fail as in the plain version;
-//   lanes 0-2 solve the inverse's three columns at once;
+//   lanes 0-2 of a feature solve the inverse's three columns at once;
 // - T, gx and gy are read through their strides (the caller's strided
 //   interior view of patch_gradients is not copied), init_uv too; the
 //   iterations start from init_uv with NaN and +-inf set to 0;
@@ -538,11 +548,32 @@ __global__ void __launch_bounds__(32 * W) epi_scan_kernel(const ScanArgs a) {
 //   one patch side.  align_iclk measures the drift from the raw init_uv
 //   (patch_pallas.py:647), so a non-finite start never converges;
 //   align_iclk_mxu from the zeroed one;
-// - one warp per feature: template and gradients in registers (K pixels
-//   per lane), one fused shuffle reduction of the three sums per
-//   iteration, no __syncthreads.  The first sample is taken with the
-//   template loads and reduced with the Hessian sums, so the prologue
-//   costs one memory round trip and one reduction;
+// - a feature's lanes hold its template and gradients in registers and
+//   reduce its three sums with one fused shuffle butterfly per iteration,
+//   no __syncthreads.  The first sample is taken with the template loads and
+//   reduced with the Hessian sums, so the prologue costs one memory round
+//   trip and one reduction;
+// - the work per pixel is cut where the bits allow: while inb(u, v) holds,
+//   a sample reads its taps without the clamps (the identity there) in
+//   32-bit offsets, and where the patch side divides a feature's lanes a
+//   lane's pixels share one column, so one x coordinate, its floor and its
+//   weights serve them all;
+// - the layout follows the row count.  Below kPackRows features (the single
+//   frame's 768) a feature has a warp: 32 lanes of K = ceil(area / 32)
+//   pixels, every feature's chain on its own warp.  From kPackRows on (the
+//   batched step's 8,448), patches of up to 64 pixels are packed V = 2 to a
+//   warp: 16 lanes each, every lane standing for two lanes of the warp
+//   layout (pixels l + 32q and l + 16 + 32q).  That halves the warps and
+//   each feature's shuffles (4 levels, not 5) and the scalar work every
+//   lane of a feature repeats (the step, the bounds tests, the 3x3
+//   inverse).  The sums keep their bits: a lane forms each stood-for lane's
+//   partial in the warp layout's order and adds the two as that layout's
+//   xor-16 step does (a + b = b + a), then runs its xor 8, 4, 2, 1 steps
+//   (`feature_sum`).  The two features of a warp iterate as long as the
+//   longer one: a feature that is done (or dead) keeps its state, issues no
+//   reads and joins the warp's shuffles with values nobody uses.  Packing
+//   pays from about 3,000 rows and costs below (1,536 rows: 8.0 against
+//   7.3 us); kPackRows sits between;
 // - align_iclk_kernel samples the stack with the plain version's clamps;
 // - the window kernel's 32x64 window of dump_windows is a predicate, not a
 //   copy: while `inb` holds (win_ok, patch_pallas.py:821-824) every tap of
@@ -557,9 +588,16 @@ __global__ void __launch_bounds__(32 * W) epi_scan_kernel(const ScanArgs a) {
 // Each gate is on only when the caller gives it (a flag each), as JAX skips
 // a gate that is None.  Dead slots return the (NaN-zeroed) initial position,
 // mean 0, not converged — what the plain versions return for them.
+// `iclk_residency` reports the layout a launch takes and what the card
+// makes of it (registers, spills, resident blocks per SM).  Measured and not
+// taken (build/iclk_*.patch): __launch_bounds__ for 8 blocks of 128 per SM
+// (spills), the window kernel re-reading its final patch and template for
+// the gates instead of holding them (72 registers, not 64, and slower).
 // ---------------------------------------------------------------------------
 constexpr float kPivotFloor = 1e-20f;                 // linsolve._PIVOT_FLOOR
 constexpr float kConvStep2 = 4.0f * kMinUpdateSquared;
+constexpr int kIclkThreads = 128;                     // 4 warps per block
+constexpr int kPackRows = 2048;                       // 2 features a warp
 
 // geometry/linsolve.py's inv_spd for a 3x3 SPD matrix, in two parts: the
 // unrolled Cholesky with the pivot clamped to kPivotFloor (NaN passes
@@ -623,6 +661,28 @@ __device__ __forceinline__ float win_read(const float* __restrict__ img,
        + wy * ((1.0f - wx) * v10 + wx * v11);
 }
 
+// Sums over a feature's 32 / V lanes of the M values each lane holds for
+// the V warp-layout lanes it stands for (p[v]: lane l + (32 / V) v): first
+// those partials, added as warp_sum_n's xor steps 16 .. 32 / V add them,
+// then the xor steps 16 / V .. 1 across the feature's lanes.  Every lane of
+// the feature ends with the sum in p[0], bit for bit warp_sum_n's.
+template <int V, int M>
+__device__ __forceinline__ void feature_sum(float (&p)[V][M]) {
+#pragma unroll
+  for (int b = V / 2; b > 0; b >>= 1) {
+#pragma unroll
+    for (int v = 0; v < b; ++v) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) p[v][k] = p[v][k] + p[v + b][k];
+    }
+  }
+#pragma unroll
+  for (int o = 16 / V; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < M; ++k) p[0][k] += __shfl_xor_sync(kFull, p[0][k], o);
+  }
+}
+
 // The launch arguments of both ICLK kernels (the gates are off for
 // align_iclk_kernel).
 struct IclkArgs {
@@ -637,32 +697,42 @@ struct IclkArgs {
   float* out_uv; unsigned char* out_conv; float* out_mean;
 };
 
-template <int K, bool kWindow>             // patch pixels per lane
+// One feature per 32 / V lanes of a warp (V = 1 or 2, module comment).
+template <int HALF, int V, bool kWindow>
 __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
+  constexpr int P = 2 * HALF;
+  constexpr int AREA = P * P;
+  constexpr int K = (AREA + 31) / 32;      // pixels per warp-layout lane
+  constexpr int LPF = 32 / V;              // lanes per feature
   const int lane = threadIdx.x & 31;
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (i >= a.n) return;
-  const int half = a.half;
-  const int p = 2 * half;
-  const int area = p * p;
-  const float u_raw = __ldg(a.uv0 + i * a.s_un);
-  const float v_raw = __ldg(a.uv0 + i * a.s_un + a.s_uc);
+  const int l = lane % LPF;                // the feature's lane
+  const long long i =
+      (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * V
+      + lane / LPF;
+  const bool row = i < a.n;
+  float u_raw = 0.0f, v_raw = 0.0f;
+  bool live = false;
+  if (row) {
+    u_raw = __ldg(a.uv0 + i * a.s_un);
+    v_raw = __ldg(a.uv0 + i * a.s_un + a.s_uc);
+    live = a.valid[i];
+  }
   const float u_init = finite_or_zero(u_raw);
   const float v_init = finite_or_zero(v_raw);
-  if (!a.valid[i]) {
-    if (lane == 0) {
-      a.out_uv[2 * i] = u_init;
-      a.out_uv[2 * i + 1] = v_init;
-      a.out_conv[i] = 0;
-      a.out_mean[i] = 0.0f;
-    }
-    return;
+  if (row && !live && l == 0) {
+    a.out_uv[2 * i] = u_init;
+    a.out_uv[2 * i + 1] = v_init;
+    a.out_conv[i] = 0;
+    a.out_mean[i] = 0.0f;
   }
+  // a warp whose features are all dead or past n has nothing to do; in any
+  // other, every lane stays to the end for the shuffles
+  if (!__any_sync(kFull, live)) return;
   const int H = a.H, W = a.W;
   const long long s_r = a.s_r;
-  const int l = min(max(a.lvl[i], 0), a.L - 1);
+  const int l_c = live ? min(max(a.lvl[i], 0), a.L - 1) : 0;
   const float* __restrict__ img =
-      a.stack + (i / a.n_per) * a.s_b + (long long)l * a.s_l;
+      a.stack + (live ? (i / a.n_per) * a.s_b : 0) + (long long)l_c * a.s_l;
   // the window kernel's origin (dump_windows: floor(uv) - (32, 16), clamped
   // so the crop fits the padded plane; then the slice start as
   // dynamic_slice clamps it); align_iclk_kernel samples plane coordinates
@@ -678,9 +748,9 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
     orgx = (float)ox;
     orgy = (float)oy;
   }
-  const float wl = (float)(a.w_true >> l), hl = (float)(a.h_true >> l);
-  const float m = (float)half + 1.0f;
-  const float wb = (float)half + 2.0f;
+  const float wl = (float)(a.w_true >> l_c), hl = (float)(a.h_true >> l_c);
+  const float m = (float)HALF + 1.0f;
+  const float wb = (float)HALF + 2.0f;
   // two predicates, then combined: one && chain over all eight tests
   // compiles to branches inside the iteration loop
   auto inb = [&](float x, float y) {
@@ -692,82 +762,128 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
     return lvl_ok && win_ok;
   };
   float u = u_init, v = v_init, mean = 0.0f;
-  float t[K], dx[K], dy[K], offx[K], offy[K], cur[K];
-  // Sample at (u, v) with brightness offset `mean`, and this lane's part of
-  // the residual sums (gx r, gy r, r) into g[0..2].
-  auto sample = [&](float* g) {
+  // [w][q]: pixel l + LPF * w + 32 * q, the warp layout's lane l + LPF * w
+  float t[V][K], dx[V][K], dy[V][K], offx[V][K], offy[V][K], cur[V][K];
+  // While inb(u, v) holds every tap of the sample lies inside the level
+  // (align_iclk_kernel: columns >= 1 and <= w_l - 2) or inside the window,
+  // away from its clamps (columns 2..61, rows 2..29), so the reads' clamps
+  // are the identity there: such a sample reads its taps without them, in
+  // 32-bit offsets from `base` (the plane, or the window's top-left pixel),
+  // the same pixels blended by the same expression.  Planes smaller than
+  // the window, or too large for 32-bit offsets, always clamp.
+  const bool unclamped_ok =
+      (long long)H * s_r < INT_MAX
+      && (!kWindow || (H >= kWinRows && W >= kWinCols));
+  const float* __restrict__ base = img + (long long)sy * s_r + sx;
+  const int s_r32 = (int)s_r;
+  // Sample at (u, v) with brightness offset `mean`, and each stood-for
+  // lane's part of the residual sums (gx r, gy r, r) into g[w][0..2].
+  auto sample = [&](auto& g) {
     const float cu = u - orgx, cv = v - orgy;      // window coordinates
+    auto pixels = [&](auto inside) {
 #pragma unroll
-    for (int q = 0; q < K; ++q) {
-      cur[q] = 0.0f;
-      if (lane + 32 * q < area) {
-        const float x = cu + offx[q], y = cv + offy[q];
-        cur[q] = kWindow ? win_read(img, s_r, H, W, sx, sy, x, y)
-                         : bilin(img, s_r, H, W, x, y);
-        const float r = cur[q] - t[q] + mean;
-        g[0] += dx[q] * r;
-        g[1] += dy[q] * r;
-        g[2] += r;
+      for (int w = 0; w < V; ++w) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          cur[w][q] = 0.0f;
+          if (l + LPF * w + 32 * q < AREA) {
+            const float x = cu + offx[w][q], y = cv + offy[w][q];
+            if constexpr (decltype(inside)::value) {
+              cur[w][q] = bilin_inside(base, s_r32, x, y);
+            } else {
+              cur[w][q] = kWindow ? win_read(img, s_r, H, W, sx, sy, x, y)
+                                  : bilin(img, s_r, H, W, x, y);
+            }
+            const float r = cur[w][q] - t[w][q] + mean;
+            g[w][0] += dx[w][q] * r;
+            g[w][1] += dy[w][q] * r;
+            g[w][2] += r;
+          }
+        }
       }
+    };
+    if (unclamped_ok && inb(u, v)) {
+      pixels(std::true_type{});
+    } else {
+      pixels(std::false_type{});
     }
   };
   // The template loads and the first sample (the first iteration's, or the
   // final resample's when the loop does not run) share one memory round
   // trip and one reduction with the Hessian sums (gx^2, gx gy, gx, gy^2,
-  // gy) and, for the gates, the template's sum.
+  // gy) and, for the gates, the template's sum.  A dead feature reads
+  // nothing.
   constexpr int kAcc = kWindow ? 9 : 8;
-  float acc[kAcc];
+  float acc[V][kAcc];
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
+  for (int w = 0; w < V; ++w) {
 #pragma unroll
-  for (int q = 0; q < K; ++q) {
-    const int pix = lane + 32 * q;
-    const bool on = pix < area;
-    const int r = pix / p, c = pix % p;
-    t[q] = on ? __ldg(a.T + i * a.s_tn + r * a.s_tr + c) : 0.0f;
-    dx[q] = on ? __ldg(a.gx + i * a.s_xn + r * a.s_xr + c) : 0.0f;
-    dy[q] = on ? __ldg(a.gy + i * a.s_yn + r * a.s_yr + c) : 0.0f;
-    offx[q] = (float)(c - half);
-    offy[q] = (float)(r - half);
-    acc[3] += dx[q] * dx[q];
-    acc[4] += dx[q] * dy[q];
-    acc[5] += dx[q];
-    acc[6] += dy[q] * dy[q];
-    acc[7] += dy[q];
-    if constexpr (kWindow) acc[8] += t[q];
+    for (int e = 0; e < kAcc; ++e) acc[w][e] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int pix = l + LPF * w + 32 * q;
+      const bool on = live && pix < AREA;
+      // where P divides the lanes per feature, a lane's pixels share their
+      // column: one x coordinate (its floor and weights) serves them all
+      const int r = pix / P, c = LPF % P == 0 ? l % P : pix % P;
+      t[w][q] = on ? __ldg(a.T + i * a.s_tn + r * a.s_tr + c) : 0.0f;
+      dx[w][q] = on ? __ldg(a.gx + i * a.s_xn + r * a.s_xr + c) : 0.0f;
+      dy[w][q] = on ? __ldg(a.gy + i * a.s_yn + r * a.s_yr + c) : 0.0f;
+      offx[w][q] = (float)(c - HALF);
+      offy[w][q] = (float)(r - HALF);
+      cur[w][q] = 0.0f;
+      acc[w][3] += dx[w][q] * dx[w][q];
+      acc[w][4] += dx[w][q] * dy[w][q];
+      acc[w][5] += dx[w][q];
+      acc[w][6] += dy[w][q] * dy[w][q];
+      acc[w][7] += dy[w][q];
+      if constexpr (kWindow) acc[w][8] += t[w][q];
+    }
   }
-  sample(acc);
-  warp_sum_n(acc);
-  const float Hm[3][3] = {{acc[3] + 1e-6f, acc[4], acc[5]},
-                          {acc[4], acc[6] + 1e-6f, acc[7]},
-                          {acc[5], acc[7], (float)area + 1e-6f}};
+  if (live) sample(acc);
+  feature_sum(acc);
+  const float Hm[3][3] = {{acc[0][3] + 1e-6f, acc[0][4], acc[0][5]},
+                          {acc[0][4], acc[0][6] + 1e-6f, acc[0][7]},
+                          {acc[0][5], acc[0][7], (float)AREA + 1e-6f}};
   float Lm[3][3], col[3], hv[3][3];
   chol3(Hm, Lm);
-  chol_solve_unit(Lm, lane % 3, col);      // lanes 0-2: columns 0-2
+  chol_solve_unit(Lm, l % 3, col);         // lanes 0-2: columns 0-2
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) hv[r][c] = __shfl_sync(0xffffffffu, col[r], c);
+    for (int c = 0; c < 3; ++c) hv[r][c] = __shfl_sync(kFull, col[r], c, LPF);
   }
-  float g[3] = {acc[0], acc[1], acc[2]};   // residual sums at (u, v, mean)
+  float g[3] = {acc[0][0], acc[0][1], acc[0][2]};  // sums at (u, v, mean)
   auto step = [&](float* d0, float* d1, float* d2) {
     *d0 = hv[0][0] * g[0] + hv[0][1] * g[1] + hv[0][2] * g[2];
     *d1 = hv[1][0] * g[0] + hv[1][1] * g[1] + hv[1][2] * g[2];
     *d2 = hv[2][0] * g[0] + hv[2][1] * g[1] + hv[2][2] * g[2];
   };
+  bool run = live;                         // this feature still iterates
   for (int it = 0; it < a.n_iter; ++it) {
-    if (!inb(u, v)) break;                 // uniform across the warp
+    run = run && inb(u, v);
+    if (!__any_sync(kFull, run)) break;    // every feature of the warp done
     float d0, d1, d2;
     step(&d0, &d1, &d2);
-    u -= d0;
-    v -= d1;
-    mean -= d2;
-    const float step2 = d0 * d0 + d1 * d1;
+    float step2 = 0.0f;
     // the next iteration's sample, or the final resample after a break
-    g[0] = g[1] = g[2] = 0.0f;
-    sample(g);
-    warp_sum_n(g);
-    if (!inb(u, v) || step2 < kMinUpdateSquared) break;
+    float gn[V][3];
+#pragma unroll
+    for (int w = 0; w < V; ++w) gn[w][0] = gn[w][1] = gn[w][2] = 0.0f;
+    if (run) {
+      u -= d0;
+      v -= d1;
+      mean -= d2;
+      step2 = d0 * d0 + d1 * d1;
+      sample(gn);
+    }
+    feature_sum(gn);
+    if (run) {
+      g[0] = gn[0][0];
+      g[1] = gn[0][1];
+      g[2] = gn[0][2];
+      run = inb(u, v) && !(step2 < kMinUpdateSquared);
+    }
   }
   const bool ok = inb(u, v);
   float d0, d1, d2;
@@ -775,31 +891,41 @@ __device__ __forceinline__ void iclk_feature(const IclkArgs& a) {
   const float step2 = ok ? d0 * d0 + d1 * d1 : INFINITY;
   const float du = u - (kWindow ? u_init : u_raw);
   const float dv = v - (kWindow ? v_init : v_raw);
-  bool conv = (step2 < kConvStep2) && (sqrtf(du * du + dv * dv) < (float)p);
+  bool conv = (step2 < kConvStep2) && (sqrtf(du * du + dv * dv) < (float)P);
   if constexpr (kWindow) {
     if (a.zmssd_on || a.std_on) {          // appearance gates on the resample
-      float s1[1] = {0.0f};
+      float s1[V][1];
 #pragma unroll
-      for (int q = 0; q < K; ++q) s1[0] += cur[q];
-      warp_sum_n(s1);
-      const float cmean = s1[0] / (float)area;
-      const float tmean = acc[8] / (float)area;
-      float s2[2] = {0.0f, 0.0f};
+      for (int w = 0; w < V; ++w) {
+        s1[w][0] = 0.0f;
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        if (lane + 32 * q < area) {
-          const float cz = cur[q] - cmean;
-          const float dz = cz - (t[q] - tmean);
-          s2[0] += dz * dz;
-          s2[1] += cz * cz;
+        for (int q = 0; q < K; ++q) s1[w][0] += cur[w][q];
+      }
+      feature_sum(s1);
+      const float cmean = s1[0][0] / (float)AREA;
+      const float tmean = acc[0][8] / (float)AREA;
+      float s2[V][2];
+#pragma unroll
+      for (int w = 0; w < V; ++w) {
+        s2[w][0] = s2[w][1] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          if (l + LPF * w + 32 * q < AREA) {
+            const float cz = cur[w][q] - cmean;
+            const float dz = cz - (t[w][q] - tmean);
+            s2[w][0] += dz * dz;
+            s2[w][1] += cz * cz;
+          }
         }
       }
-      warp_sum_n(s2);
-      if (a.zmssd_on) conv = conv && (s2[0] < a.zmssd_max);
-      if (a.std_on) conv = conv && (sqrtf(s2[1] / (float)area) >= a.std_min);
+      feature_sum(s2);
+      if (a.zmssd_on) conv = conv && (s2[0][0] < a.zmssd_max);
+      if (a.std_on) {
+        conv = conv && (sqrtf(s2[0][1] / (float)AREA) >= a.std_min);
+      }
     }
   }
-  if (lane == 0) {
+  if (live && l == 0) {
     a.out_uv[2 * i] = u;
     a.out_uv[2 * i + 1] = v;
     a.out_conv[i] = conv ? 1 : 0;
@@ -875,43 +1001,61 @@ __global__ void __launch_bounds__(kDumpThreads) dump_windows_kernel(
   }
 }
 
-template <int K>
+template <int HALF, int V>
 __global__ void align_iclk_kernel(const IclkArgs a) {
-  iclk_feature<K, false>(a);
+  iclk_feature<HALF, V, false>(a);
 }
 
-template <int K>
+template <int HALF, int V>
 __global__ void align_iclk_window_kernel(const IclkArgs a) {
-  iclk_feature<K, true>(a);
+  iclk_feature<HALF, V, true>(a);
 }
 
 inline unsigned blocks_for(long long threads, int per_block) {
   return (unsigned)((threads + per_block - 1) / per_block);
 }
 
-template <int K>
-int iclk_launch_k(bool window, const IclkArgs& a, cudaStream_t st) {
-  const int tpb = 128;                     // 4 features per block
-  const dim3 grid(blocks_for((long long)a.n * 32, tpb));
-  if (window) {
-    align_iclk_window_kernel<K><<<grid, tpb, 0, st>>>(a);
-  } else {
-    align_iclk_kernel<K><<<grid, tpb, 0, st>>>(a);
+// The ICLK launch for n rows: the entry, its grid and features per warp.
+struct IclkLaunch {
+  void (*kernel)(IclkArgs);
+  unsigned grid;
+  int per_warp;
+};
+
+template <int HALF, int V>
+IclkLaunch iclk_layout_v(bool window, long long n) {
+  return {window ? &align_iclk_window_kernel<HALF, V>
+                 : &align_iclk_kernel<HALF, V>,
+          blocks_for((n + V - 1) / V * 32, kIclkThreads), V};
+}
+
+template <int HALF>
+IclkLaunch iclk_layout_h(bool window, long long n) {
+  if constexpr (4 * HALF * HALF <= 64) {   // 16 lanes hold the patch
+    if (n >= kPackRows) return iclk_layout_v<HALF, 2>(window, n);
   }
-  return (int)cudaGetLastError();
+  return iclk_layout_v<HALF, 1>(window, n);
+}
+
+// The layout of a launch of n rows at `half` (kernel null: no such half).
+IclkLaunch iclk_layout(bool window, int half, long long n) {
+  switch (half) {
+    case 1: return iclk_layout_h<1>(window, n);
+    case 2: return iclk_layout_h<2>(window, n);
+    case 3: return iclk_layout_h<3>(window, n);
+    case 4: return iclk_layout_h<4>(window, n);
+    case 5: return iclk_layout_h<5>(window, n);
+    default: return {nullptr, 0, 0};
+  }
 }
 
 int iclk_launch(bool window, const IclkArgs& a, void* stream) {
   if (a.n <= 0) return 0;
   if (a.n_per <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch ((4 * a.half * a.half + 31) / 32) {   // patch pixels per lane
-    case 1: return iclk_launch_k<1>(window, a, st);
-    case 2: return iclk_launch_k<2>(window, a, st);
-    case 3: return iclk_launch_k<3>(window, a, st);
-    case 4: return iclk_launch_k<4>(window, a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const IclkLaunch k = iclk_layout(window, a.half, a.n);
+  if (k.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  k.kernel<<<k.grid, kIclkThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Features per block of the sampler for n features of `area` pixels: whole
@@ -1055,6 +1199,31 @@ int launch_align_iclk_window(
                    valid, n, n_iter, half, zmssd_on, zmssd_max, std_on,
                    std_min, out_uv, out_conv, out_mean};
   return iclk_launch(true, a, stream);
+}
+
+// The layout an ICLK launch of n rows at `half` takes (window: the window
+// kernel) and what the card makes of it: out[0..6] = registers per thread,
+// local (spill) bytes per thread, resident blocks per SM at the launch's
+// block size, threads per block, blocks, features per warp and the card's
+// SM count.  Returns the cudaError_t of the queries.
+int iclk_residency(int half, int window, int n, int* out) {
+  const IclkLaunch k = iclk_layout(window != 0, half, n);
+  if (k.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, k.kernel);
+  int blocks = 0, dev = 0, sms = 0;
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.kernel,
+                                                       kIclkThreads, 0);
+  }
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int vals[7] = {attr.numRegs, (int)attr.localSizeBytes, blocks,
+                       kIclkThreads, (int)k.grid, k.per_warp, sms};
+  for (int j = 0; j < 7; ++j) out[j] = rc == cudaSuccess ? vals[j] : 0;
+  return (int)rc;
 }
 
 }  // extern "C"

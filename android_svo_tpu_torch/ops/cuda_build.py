@@ -56,6 +56,18 @@ _SIGNATURES = {
                             _LL, _P, _I, _I, _P, _P, _P],
     "launch_probe_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
+# queries a source may define beside its launchers (each returns a
+# cudaError_t): the ICLK layout and its residency on the card
+_QUERIES = {"iclk_residency": [_I, _I, _I, _P]}
+
+
+def bind(lib, names) -> None:
+    """Give `lib`'s functions `names` their ctypes signatures (launchers
+    and queries), each returning an int."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES.get(name) or _QUERIES[name]
+        fn.restype = ctypes.c_int
 
 
 def sources() -> list:
@@ -128,10 +140,7 @@ def library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+        bind(lib, [*_SIGNATURES, *_QUERIES])
         _lib = lib
     return _lib
 

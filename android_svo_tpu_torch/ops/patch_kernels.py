@@ -41,8 +41,9 @@ with a `register_vmap` rule, the counterpart of the Pallas batching rule
 that gives a `pallas_call` under `jax.vmap` a batch grid axis.  Under
 `torch.func.vmap` the rule calls the `*_batched` form: a `(B, L, Hp, Wp)`
 stack (an unbatched stack is read with batch stride 0) and `(B, N, ...)`
-features, flattened to B*N rows for one allocation per output and ONE
-launch for the whole batch (`LAUNCHES` adds one per batched call); on the
+features, B*N rows for one allocation per output and ONE launch for the
+whole batch (`LAUNCHES` adds one per batched call; the sampler and the
+ICLKs read the (B, N) rows in place, the others flatten them); on the
 CPU the batched plain version runs the per-frame plain version on the B*L
 planes, each feature reading plane b*L + level.  Outside a `torch.func`
 transform a wrapper calls its op's body directly (`_call`): the single path
@@ -144,16 +145,6 @@ def _stack_args(stack: torch.Tensor):
     L, H, W = stack.shape[-3:]
     s_b = s[0] if stack.dim() == 4 else 0
     return (stack.data_ptr(), s_b, s[-3], s[-2], L, H, W)
-
-
-def _patch_args(t, name: str, n: int, p: int, device: int):
-    """(pointer, stride(0), stride(1)) of an (n, p, p) float32 patch tensor
-    with contiguous rows (patch_gradients' strided interior view passes)."""
-    check(t, name, torch.float32, (n, p, p), device)
-    s = t.stride()
-    if n and s[2] != 1:
-        raise ValueError(f"{name} rows must be contiguous (stride(2) == 1)")
-    return (t.data_ptr(), s[0], s[1])
 
 
 def _nan0(t):
@@ -362,7 +353,7 @@ def _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
         # the kernel reads in-bounds taps without clamps
         raise ValueError(f"image dims {h}x{w} exceed the stack's "
                          f"{stack_args[5]}x{stack_args[6]}")
-    ref = _patch_args(ref_patch, "ref_patch", n, p, dev)
+    ref = _row_args(ref_patch, "ref_patch", (n,), (p, p), dev)[1:]
     check(uv_a, "uv_a", torch.float32, (n, 2), dev)
     check(uv_b, "uv_b", torch.float32, (n, 2), dev)
     check(lvl, "lvl", torch.int32, (n,), dev)
@@ -545,48 +536,71 @@ def _align_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
     return uv, mean, step2
 
 
+def _row_args(t, name: str, rows: tuple, tail: tuple, device: int):
+    """(tensor, pointer, row stride, stride(-2)) of a float32 `rows + tail`
+    tensor read in place: (N, ...) rows, or (B, N, ...) rows whose frames
+    lie at one common row stride (row i at i * stride); other (B, N, ...)
+    inputs (a vmap rule's moved or expanded argument) are reshaped to B*N
+    rows, and the tensor returned is what the kernel reads (keep it until
+    the launch).  Patches (`tail` (P, P)) must have contiguous rows."""
+    check(t, name, torch.float32, rows + tail, device)
+    s = t.stride()
+    if len(tail) == 2 and t.numel() and s[-1] != 1:
+        raise ValueError(f"{name} rows must be contiguous (stride(-1) == 1)")
+    if len(rows) == 2 and rows[0] > 1 and s[0] != rows[1] * s[1]:
+        t = t.reshape((rows[0] * rows[1],) + tail)   # no common row stride
+        s = (0,) + t.stride()
+    return (t, t.data_ptr(), *s[len(rows) - 1:len(rows) + 1])
+
+
 def _iclk_launch(name: str, fn_name: str, stack, lvl, T, gx, gy, uv0, valid,
-                 n_iter: int, h: int, w: int, gates: tuple = (),
-                 n_per: int | None = None):
+                 n_iter: int, h: int, w: int, gates: tuple = ()):
     """Checks, the three output allocations and the one launch of an ICLK
     kernel (`gates`: the window kernel's gate flags and levels); inputs of
-    another type, shape, layout or device raise before any allocation.  A
-    (B, L, Hp, Wp) stack takes B * n_per features, feature i reading frame
-    i // n_per."""
+    another type, shape, layout or device raise before any allocation.
+    `lvl` is (N,), or (B, N) for a (B, L, Hp, Wp) stack: B * N rows, row i
+    reading frame i // N, the other inputs of the same leading shape and
+    read in place (`_row_args`); the outputs are (B, N, ...) then."""
     dev = stack.get_device()
-    n, p = T.shape[0], T.shape[-1]
+    rows = tuple(lvl.shape)
+    p = T.shape[-1]
     if p % 2 or not 0 < p * p <= 128:
         raise ValueError(f"{name} takes even patch sides of at most 128 px, "
                          f"got {tuple(T.shape)}")
+    if len(rows) not in (1, 2) or (len(rows) == 2 and (
+            stack.dim() != 4 or stack.shape[0] != rows[0])):
+        raise ValueError(f"lvl {rows} is not (N,) or one row of N per "
+                         f"frame of a {tuple(stack.shape)} stack")
     stack_args = _stack_args(stack)
-    args = [*_patch_args(T, "ref_patch", n, p, dev),
-            *_patch_args(gx, "ref_dx", n, p, dev),
-            *_patch_args(gy, "ref_dy", n, p, dev)]
-    check(uv0, "init_uv", torch.float32, (n, 2), dev)
-    check(lvl, "lvl", torch.int32, (n,), dev)
+    read = [_row_args(T, "ref_patch", rows, (p, p), dev),
+            _row_args(gx, "ref_dx", rows, (p, p), dev),
+            _row_args(gy, "ref_dy", rows, (p, p), dev),
+            _row_args(uv0, "init_uv", rows, (2,), dev)]
+    check(lvl, "lvl", torch.int32, rows, dev)
     contiguous(lvl, "lvl")
-    check(valid, "valid", torch.bool, (n,), dev)
+    check(valid, "valid", torch.bool, rows, dev)
     contiguous(valid, "valid")
     device = stack.device
-    out_uv = torch.empty((n, 2), dtype=torch.float32, device=device)
-    out_conv = torch.empty((n,), dtype=torch.bool, device=device)
-    out_mean = torch.empty((n,), dtype=torch.float32, device=device)
+    out_uv = torch.empty(rows + (2,), dtype=torch.float32, device=device)
+    out_conv = torch.empty(rows, dtype=torch.bool, device=device)
+    out_mean = torch.empty(rows, dtype=torch.float32, device=device)
+    n = lvl.numel()
     if n:
-        su = uv0.stride()
         launch(LAUNCHES, name, fn_name, *stack_args, int(h), int(w),
-               n if n_per is None else n_per, lvl.data_ptr(), *args,
-               uv0.data_ptr(), su[0], su[1], valid.data_ptr(), n, int(n_iter), p // 2, *gates,
+               rows[-1], lvl.data_ptr(), *(a for r in read for a in r[1:]),
+               valid.data_ptr(), n, int(n_iter), p // 2, *gates,
                out_uv.data_ptr(), out_conv.data_ptr(), out_mean.data_ptr(),
                stream(dev))
     return out_uv, out_conv, out_mean
 
 
 def _align_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int, h: int,
-                  w: int, n_per: int | None = None):
+                  w: int):
     """The whole of align_iclk in one launch (Hessian and inverse,
-    NaN-zeroing, ICLK and convergence in the kernel)."""
+    NaN-zeroing, ICLK and convergence in the kernel), for (N,) or (B, N)
+    rows (`_iclk_launch`)."""
     return _iclk_launch("align_iclk_kernel", "launch_align_iclk", stack, lvl,
-                        T, gx, gy, uv0, valid, n_iter, h, w, n_per=n_per)
+                        T, gx, gy, uv0, valid, n_iter, h, w)
 
 
 def _align_iclk_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
@@ -634,22 +648,24 @@ def align_iclk_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                        w: int | None = None, use_pallas=True):
     """align_iclk for a batch: stack (B, L, Hp, Wp), lvl / valid (B, N),
     patches (B, N, P, P), init_uv (B, N, 2).  Returns (uv, converged,
-    mean_diff) with a leading (B, N).  On CUDA one launch for all B*N
-    features."""
+    mean_diff) with a leading (B, N).  On CUDA three allocations and one
+    launch for all B*N features, the (B, N, ...) rows read in place; a
+    mask or level tensor whose rows are not contiguous (a vmap rule's moved
+    or expanded argument) is made so."""
     B, N = lvl.shape
     L, hp, wp = stack.shape[-3:]
     h = hp if h is None else h
     w = wp if w is None else w
+    if _on_card(stack, use_pallas):
+        return _align_kernel(stack, lvl.contiguous(), ref_patch, ref_dx,
+                             ref_dy, init_uv, valid.contiguous(), n_iter, h,
+                             w)
     T, gx, gy, uv0, ok = _flat_features(B, N, ref_patch, ref_dx, ref_dy,
                                         init_uv, valid)
-    if _on_card(stack, use_pallas):
-        out = _align_kernel(stack, lvl.reshape(B * N), T, gx, gy, uv0, ok,
-                            n_iter, h, w, n_per=N)
-    else:
-        planes, plane = _planes(stack, lvl, wrap=False)
-        out = _align_iclk_plain(planes, lvl.reshape(B * N), T, gx, gy, uv0,
-                                ok, n_iter, h, w, plane=plane, L=L)
-    uv, conv, mean = out
+    planes, plane = _planes(stack, lvl, wrap=False)
+    uv, conv, mean = _align_iclk_plain(planes, lvl.reshape(B * N), T, gx, gy,
+                                       uv0, ok, n_iter, h, w, plane=plane,
+                                       L=L)
     return uv.view(B, N, 2), conv.view(B, N), mean.view(B, N)
 
 
@@ -914,18 +930,17 @@ def _align_mxu_plain(stack, lvl, T, gx, gy, hinv, uv0, valid, n_iter: int,
 
 
 def _align_window_kernel(stack, lvl, T, gx, gy, uv0, valid, n_iter: int,
-                         h: int, w: int, zmssd_factor, min_patch_std,
-                         n_per: int | None = None):
+                         h: int, w: int, zmssd_factor, min_patch_std):
     """The whole of align_iclk_mxu in one launch (Hessian and inverse,
-    NaN-zeroing, window origin, ICLK, convergence and gates in the kernel)."""
+    NaN-zeroing, window origin, ICLK, convergence and gates in the kernel),
+    for (N,) or (B, N) rows (`_iclk_launch`)."""
     p = T.shape[-1]
     zmssd_on = zmssd_factor is not None
     std_on = min_patch_std is not None
     gates = (int(zmssd_on), float(zmssd_factor) * p * p if zmssd_on else 0.0,
              int(std_on), float(min_patch_std) if std_on else 0.0)
     return _iclk_launch("align_iclk_window_kernel", "launch_align_iclk_window",
-                        stack, lvl, T, gx, gy, uv0, valid, n_iter, h, w, gates,
-                        n_per=n_per)
+                        stack, lvl, T, gx, gy, uv0, valid, n_iter, h, w, gates)
 
 
 def _align_iclk_mxu_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
@@ -974,23 +989,23 @@ def align_iclk_mxu_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
                            zmssd_factor: float | None = None,
                            min_patch_std: float | None = None):
     """align_iclk_mxu for a batch, with the shapes of align_iclk_batched.
-    On CUDA one launch for all B*N features."""
+    On CUDA three allocations and one launch for all B*N features, the
+    (B, N, ...) rows read in place (as in align_iclk_batched)."""
     B, N = lvl.shape
     L, hp, wp = stack.shape[-3:]
     h = hp if h is None else h
     w = wp if w is None else w
+    if _on_card(stack, use_pallas):
+        return _align_window_kernel(stack, lvl.contiguous(), ref_patch,
+                                    ref_dx, ref_dy, init_uv,
+                                    valid.contiguous(), n_iter, h, w,
+                                    zmssd_factor, min_patch_std)
     T, gx, gy, uv0, ok = _flat_features(B, N, ref_patch, ref_dx, ref_dy,
                                         init_uv, valid)
-    if _on_card(stack, use_pallas):
-        out = _align_window_kernel(stack, lvl.reshape(B * N), T, gx, gy, uv0,
-                                   ok, n_iter, h, w, zmssd_factor,
-                                   min_patch_std, n_per=N)
-    else:
-        planes, plane = _planes(stack, lvl, wrap=False)
-        out = _align_iclk_mxu_plain(planes, lvl.reshape(B * N), T, gx, gy,
-                                    uv0, ok, n_iter, h, w, zmssd_factor,
-                                    min_patch_std, plane=plane, L=L)
-    uv, conv, mean = out
+    planes, plane = _planes(stack, lvl, wrap=False)
+    uv, conv, mean = _align_iclk_mxu_plain(
+        planes, lvl.reshape(B * N), T, gx, gy, uv0, ok, n_iter, h, w,
+        zmssd_factor, min_patch_std, plane=plane, L=L)
     return uv.view(B, N, 2), conv.view(B, N), mean.view(B, N)
 
 
@@ -1021,13 +1036,15 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     On CUDA one launch of align_iclk_window_kernel computes all of it; the
     wrapper allocates the outputs and raises on inputs that are not float32
     patches (any strides with contiguous rows) and uv, int32 `lvl` and bool
-    `valid` on the stack's device.  The kernel is bound by the dependent
-    chain of each feature's iterations (one warp each: 8.8-9.0 us at 768
-    features on an NVIDIA H100 80GB HBM3 at 700 W, against a bytes bound
-    of 0.34 us); the host's checks, three allocations and the ctypes call
-    cost more.  On the CPU the plain version runs.  Under
-    `torch.func.vmap` the batch takes one launch
-    (`align_iclk_mxu_batched`)."""
+    `valid` on the stack's device.  The kernel is bound by the
+    instructions each feature's dependent samples issue: one warp a
+    feature at the single frame's 768 rows, 7.4-7.6 us (8.8-9.1 before
+    slice 12), two features a warp from 2,048 rows on, 18.3-18.4 us at
+    the batched step's 8,448 (28.6-28.7 before), against bytes
+    bounds of 0.34 and 3.7 us (tools/patch_ab.py, NVIDIA H100 80GB HBM3,
+    700 W); the host's checks, three allocations and the ctypes call cost
+    more.  On the CPU the plain version runs.  Under `torch.func.vmap` the
+    batch takes one launch (`align_iclk_mxu_batched`)."""
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
@@ -1038,16 +1055,43 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
         None if min_patch_std is None else float(min_patch_std))
 
 
+RESIDENCY_KEYS = ("registers", "local_bytes", "blocks_per_sm",
+                  "threads_per_block", "blocks", "features_per_warp", "sms")
+
+
+def iclk_residency(half: int, window: bool, n: int, lib=None) -> dict:
+    """The layout an ICLK launch of `n` rows of (2*half)^2 patches takes
+    and what the card makes of it, from the runtime (csrc
+    `iclk_residency`: cudaFuncGetAttributes and the occupancy query):
+    registers and local (spill) bytes per thread, resident blocks per SM,
+    threads per block, blocks, features per warp, the card's SMs, and the
+    waves (blocks over resident blocks times SMs).  `lib`: another build
+    of the kernels (tools/patch_ab.py's versions).  CUDA only."""
+    import ctypes
+    from android_svo_tpu_torch.ops import cuda_build
+    out = (ctypes.c_int * len(RESIDENCY_KEYS))()
+    lib = cuda_build.library() if lib is None else lib
+    rc = lib.iclk_residency(int(half), int(bool(window)), int(n), out)
+    if rc != 0:
+        raise RuntimeError(f"iclk_residency failed with cudaError_t {rc}")
+    res = dict(zip(RESIDENCY_KEYS, out))
+    per_wave = res["blocks_per_sm"] * res["sms"]
+    res["waves"] = res["blocks"] / per_wave if per_wave else float("inf")
+    return res
+
+
 def count_iclk_updates(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
-                       n_iter: int, h: int, w: int, window: bool) -> int:
+                       n_iter: int, h: int, w: int, window: bool, plane=None,
+                       L: int | None = None) -> int:
     """ICLK updates the inputs need (features x iterations before each
     feature freezes), counted by the plain version: the data-dependent work
-    of align_iclk (window=False) or align_iclk_mxu (window=True)."""
+    of align_iclk (window=False) or align_iclk_mxu (window=True).  `plane`
+    and `L` as in `_scan_plain` (a batch's B*L planes)."""
     hinv = _iclk_hinv(ref_dx, ref_dy)
     updates: list = []
     fn = _align_mxu_plain if window else _align_plain
     if window:
         init_uv = _nan0(init_uv)
     fn(stack, lvl, ref_patch, ref_dx, ref_dy, hinv, init_uv, valid, n_iter,
-       ref_patch.shape[1] // 2, h, w, updates=updates)
+       ref_patch.shape[1] // 2, h, w, updates=updates, plane=plane, L=L)
     return sum(updates)

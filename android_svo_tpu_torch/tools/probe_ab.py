@@ -87,10 +87,7 @@ def build_versions(versions: dict, out_dir: Path, fn_names) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        for fn_name in fn_names:
-            fn = getattr(lib, fn_name)
-            fn.argtypes = cuda_build._SIGNATURES[fn_name]
-            fn.restype = ctypes.c_int
+        cuda_build.bind(lib, fn_names)
         built[name] = (lib, report)
     return built
 

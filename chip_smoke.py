@@ -29,7 +29,10 @@ every phase passed):
                sampler's 4x4 gradient form on the substack (sparse
                alignment's reference patches) and the scan at the tracking
                path's 0.7 px spacing (100 steps a seed), with the mean
-               spacing of both scan forms.
+               spacing of both scan forms.  The two ICLK kernels' layout
+               and residency at 768 and 11 x 768 rows (registers, local
+               bytes, resident blocks per SM, waves; iclk_residency): a
+               layout that spills fails the phase.
   3b. probe  — probe_patches_kernel variants A-D against their plain version
                (<= 1e-5; the kernel is bit-exact, and the line says whether
                it was) and variant A against interp.extract_patches
@@ -101,8 +104,9 @@ every phase passed):
                their batched plain versions (the dump: valid rows bit for
                bit, origins equal, dead rows zero), bit for bit the 11
                single launches, one launch and one device activity per
-               call; the dump's 3-D grid_sample on the 11 stacks timed
-               beside it; phase 3's two extra forms batched, held and
+               call (the two ICLKs at most 3 ATen ops: their (B, N) rows
+               read in place); the dump's 3-D grid_sample on the 11 stacks
+               timed beside it; phase 3's two extra forms batched, held and
                timed the same way; (b) 11 sequences (their
                own textures, seeds 0-10, and orbits) bootstrapped each in
                its own FrameHandler at the default SVOConfig(), stacked,
@@ -181,8 +185,9 @@ KERNEL_META = {
 }
 # the README's slice of the port that made each kernel what it is now
 REDESIGNED_IN = {"sample_patches_kernel": "slice 11",
-                 "align_iclk_window_kernel": "slice 3",
-                 "align_iclk_kernel": "slice 4", "epi_scan_kernel": "slice 11",
+                 "align_iclk_window_kernel": "slice 3, 12",
+                 "align_iclk_kernel": "slice 4, 12",
+                 "epi_scan_kernel": "slice 11",
                  "probe_patches_kernel": "slice 5",
                  "dump_windows_kernel": "slice 9"}
 # the window dump runs only through the public dump_windows: no tracking
@@ -1126,6 +1131,10 @@ def batched_phase(dev, label, workdir):
                                              name, f"batched B={N_SEQ}")
         require(n_dev == 1, f"batched {name}: {n_dev} device activities "
                 "per call")
+        # the batched ICLK wrappers read the (B, N) rows in place: their
+        # three output allocations (the parent's flattening made 13 ops)
+        require(not name.startswith("align_iclk") or ops[name] <= 3,
+                f"batched {name}: {ops[name]} ATen ops per call")
     lib = {"sample_patches_kernel": library_sample_batched_ms(xb)}
     l_ms, l_dev, lib_same = library_dump_ms(
         xb["stack"], xb["lvl"], xb["dump_uv"], xb["valid_mixed"], pk)
@@ -1770,6 +1779,24 @@ def main() -> int:
         log(f"time {name} with n_iter=0: device "
             f"{'n/a' if d0 is None else f'{d0:.4f}'} ms (10 iterations: "
             f"{timing[name][2]} ms) [{label}]")
+    # the ICLK kernels' layout and residency at phase 3's 768 rows and phase
+    # 10a's 11 x 768, from the runtime: registers and local (spill) bytes
+    # per thread, resident blocks per SM, waves; no layout may spill
+    iclk_res = {}
+    for n_rows in (768, 768 * N_SEQ):
+        for name in ("align_iclk_kernel", "align_iclk_window_kernel"):
+            r = pk.iclk_residency(4, name == "align_iclk_window_kernel",
+                                  n_rows)
+            iclk_res.setdefault(name, {})[f"rows{n_rows}"] = r
+            log(f"residency {name} at {n_rows} rows (8x8): "
+                f"{r['registers']} registers, {r['local_bytes']} local "
+                f"bytes, {r['blocks_per_sm']} blocks of "
+                f"{r['threads_per_block']} threads per SM, {r['blocks']} "
+                f"blocks, {r['features_per_warp']} features a warp, "
+                f"{r['waves']:.2f} waves on {r['sms']} SMs [{label}]")
+            require(r["local_bytes"] == 0,
+                    f"{name} spills {r['local_bytes']} bytes a thread at "
+                    f"{n_rows} rows")
     # gate_inputs makes the ICLK start x["init"] = uv + off and the scan's
     # segment ends uv -+ seg once, so the timings above hold no elementwise
     # op; this is the size of one
@@ -2151,6 +2178,8 @@ def main() -> int:
             "card": label})
         kernels[-1].update(host_ops_per_call=host_ops[name],
                            redesigned_in=REDESIGNED_IN[name])
+        if name in iclk_res:
+            kernels[-1]["residency"] = iclk_res[name]
         forms = {}
         for form in timing:
             if form.startswith(name + "/"):

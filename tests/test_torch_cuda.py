@@ -1006,3 +1006,310 @@ def test_scan_spacings_match_plain(problem, spacing):
     torch.cuda.synchronize()
     for i in range(2):
         assert torch.equal(big[i], torch.cat([p[i] for p in parts]))
+
+
+# ---------------------------------------------------------------------------
+# the ICLK kernels as redesigned for the batched step: one warp a feature
+# below a row count (the kernels' kPackRows, read back with
+# pk.iclk_residency), two features a warp (16 lanes each) from there on for
+# patches of up to 64 pixels
+# ---------------------------------------------------------------------------
+
+ICLK_FORMS = ["align_iclk_kernel", "align_iclk_window_kernel",
+              "align_iclk_window_kernel/ungated"]
+
+
+@pytest.fixture(scope="module")
+def wide_problem(card):
+    """2,304 features on one 240x320 frame: above the packing threshold."""
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.gate_inputs(n=2304, h=240, w=320, seed=5,
+                                    device=card)
+
+
+@pytest.fixture(scope="module")
+def packed_problem(card):
+    """11 frames of 256 features: 2,816 rows, packed in a batched launch;
+    each frame's single launch is not."""
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.batched_gate_inputs(11, n=256, h=240, w=320, seed=6,
+                                            device=card)
+
+
+def _pack_rows():
+    """The row count from which an ICLK launch packs two 8x8 features a
+    warp, as the kernels report it (pk.iclk_residency)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    lo, hi = 1, 8448                       # 1 row unpacked, 8,448 packed
+    assert pk.iclk_residency(4, False, hi)["features_per_warp"] == 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if pk.iclk_residency(4, False, mid)["features_per_warp"] == 2:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def _iclk(form, batched=False):
+    """fn(stack, lvl, T, gx, gy, init, valid, h, w, use_pallas) of an ICLK
+    form, 10 iterations (the window form with the gate's two gates)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+
+    def call(stack, lvl, T, gx, gy, init, valid, h, w, use_pallas=True):
+        if form == "align_iclk_kernel":
+            fn = pk.align_iclk_batched if batched else pk.align_iclk
+            return fn(stack, lvl, T, gx, gy, init, valid, 10, h=h, w=w,
+                      use_pallas=use_pallas)
+        fn = pk.align_iclk_mxu_batched if batched else pk.align_iclk_mxu
+        gates = ({} if form.endswith("/ungated")
+                 else dict(zmssd_factor=2000.0, min_patch_std=5.0))
+        return fn(stack, lvl, T, gx, gy, init, valid, 10, h=h, w=w,
+                  use_pallas=use_pallas, **gates)
+    return call
+
+
+def _iclk_args(x, rows=slice(None), half=4):
+    """The ICLK arguments of a gate problem's rows, the patches sampled at
+    `half` (the problem's own 8x8 ones at 4)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    lvl, uv = x["lvl"][rows], x["uv"][rows]
+    if half == 4:
+        T, gx, gy = x["ref"][rows], x["rdx"][rows], x["rdy"][rows]
+    else:
+        T, gx, gy = pk.sample_patches(x["stack"], lvl, uv, half, grad=True,
+                                      use_pallas=False)
+    return (x["stack"], lvl, T, gx, gy, x["init"][rows], x["valid"][rows],
+            x["h"], x["w"])
+
+
+def _same_all(a, b):
+    from android_svo_tpu_torch.ops import silicon_gate
+    return all(silicon_gate.same_bits(u, v) for u, v in zip(a, b))
+
+
+def _agrees_with_plain(form, k, p, uv_true=None, window_bound=False):
+    """The kernel gate's ICLK bounds against the plain version
+    (ops/silicon_gate.py::run_gate): convergence agreement >= 0.95 and
+    kernel convergences >= 0.8 x plain; uv max 0.05 px where both converge
+    (align; `window_bound`: the window form's), p90 <= 0.05 and max <= 0.5
+    (window); with `uv_true`, the median converged error to it <= 0.5 px."""
+    (uk, ck, _), (up, cp, _) = k, p
+    assert float((ck == cp).float().mean()) >= 0.95
+    assert int(ck.sum()) >= 0.8 * int(cp.sum())
+    both = ck & cp
+    if both.any():
+        d = torch.linalg.norm(uk[both] - up[both], dim=-1)
+        if form == "align_iclk_kernel" and not window_bound:
+            assert float(d.max()) <= 0.05
+        else:
+            assert float(torch.quantile(d, 0.9)) <= 0.05
+            assert float(d.max()) <= 0.5
+    if uv_true is not None:
+        err = torch.linalg.norm(uk - uv_true, dim=-1)[ck]
+        assert int(ck.sum()) > 0 and float(err.median()) <= 0.5
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("window", [False, True])
+def test_iclk_layout_follows_the_row_count(card, half, window):
+    """The runtime's view of each ICLK instantiation: one feature a warp
+    below the packing row count (and always at half 5), two from there on,
+    the switch between 1,536 rows (packing costs there) and 3,072 (it
+    pays); the blocks cover the rows; no instantiation spills."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    pack = _pack_rows()
+    assert 1536 < pack <= 3072
+    for n in (1, 767, pack - 1, pack, 8448):
+        r = pk.iclk_residency(half, window, n)
+        v = 2 if half <= 4 and n >= pack else 1
+        assert r["features_per_warp"] == v, (n, r)
+        warps = -(-n // v)
+        assert r["blocks"] == -(-warps * 32 // r["threads_per_block"])
+        assert r["local_bytes"] == 0 and r["registers"] > 0
+        assert r["blocks_per_sm"] >= 1 and r["sms"] > 0
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_iclk_permuted_rows_permute_outputs(wide_problem, packed_problem,
+                                            form, batched):
+    """Permuting the rows permutes the outputs bit for bit, so the two
+    features that share a warp do not touch each other: 2,304 rows of one
+    frame, and 11 frames of 256 rows each permuted within its frame."""
+    g = torch.Generator().manual_seed(11)
+    if not batched:
+        args = _iclk_args(wide_problem)
+        perm = torch.randperm(args[1].shape[0], generator=g).to(args[1].device)
+        moved = [a[perm] for a in args[1:7]]
+        out = _iclk(form)(*args)
+        got = _iclk(form)(args[0], *moved, *args[7:])
+        torch.cuda.synchronize()
+        assert _same_all([o[perm] for o in out], got)
+        return
+    _, xb = packed_problem
+    args = (xb["stack"], xb["lvl"], xb["ref"], xb["rdx"], xb["rdy"],
+            xb["init"], xb["valid"], xb["h"], xb["w"])
+    B, N = xb["lvl"].shape
+    perm = torch.stack([torch.randperm(N, generator=g) for _ in range(B)]
+                       ).to(xb["lvl"].device)
+
+    def rows(t):
+        idx = perm.reshape(perm.shape + (1,) * (t.dim() - 2))
+        return torch.gather(t, 1, idx.expand_as(t)).contiguous()
+
+    out = _iclk(form, batched=True)(*args)
+    got = _iclk(form, batched=True)(args[0], *(rows(a) for a in args[1:7]),
+                                    *args[7:])
+    torch.cuda.synchronize()
+    assert _same_all([rows(o) for o in out], got)
+
+
+@pytest.mark.parametrize("base, offset", [(1, 0), (3, 0), (767, 0),
+                                          ("pack", -1), ("pack", 0),
+                                          ("pack", 1), ("pack", 3)])
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_iclk_rows_around_the_threshold(wide_problem, form, base, offset):
+    """Launches of n rows on either side of the packing row count (odd
+    counts leave the last warp's second feature empty) give each row the
+    bits of the same row in a launch of 2,304, and n >= 767 rows agree with
+    the plain version within the gate's bounds."""
+    n = (_pack_rows() if base == "pack" else base) + offset
+    x = wide_problem
+    assert n <= x["lvl"].shape[0]
+    full = _iclk(form)(*_iclk_args(x))
+    args = _iclk_args(x, slice(0, n))
+    got = _iclk(form)(*args)
+    torch.cuda.synchronize()
+    assert _same_all([o[:n] for o in full], got)
+    if n >= 767:
+        plain = _iclk(form)(*args, use_pallas=False)
+        _agrees_with_plain(form, got, plain, x["uv"][:n])
+
+
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_iclk_pairs_that_stop_apart(wide_problem, form):
+    """Warps whose first feature leaves the level before its first update
+    and whose second runs every one of its 10 iterations: each row equals
+    its own one-row launch bit for bit."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    x = wide_problem
+    args = _iclk_args(x)
+    call = _iclk(form)
+    # rows still moving at the 10th iteration: the 9- and 10-iteration
+    # plain runs differ there
+    if form == "align_iclk_kernel":
+        nine = pk.align_iclk(*args[:7], 9, h=args[7], w=args[8],
+                             use_pallas=False)
+    else:
+        nine = pk.align_iclk_mxu(*args[:7], 9, h=args[7], w=args[8],
+                                 use_pallas=False)
+    ten = call(*args, use_pallas=False)
+    runs = torch.nonzero((nine[0] != ten[0]).any(-1)).flatten()
+    assert runs.numel() >= 1
+    runs = runs[:32]
+    k = runs.numel()
+    n = 2 * max(k, -(-_pack_rows() // 2))    # packed: pairs share a warp
+    pick = torch.stack([runs, runs], -1).flatten().repeat(n // (2 * k) + 1)
+    pick = pick[:n]
+    lvl, T, gx, gy, init, valid = (a[pick] for a in args[1:7])
+    init = init.clone()
+    init[0::2] = torch.tensor([1.0, 1.0], device=init.device)  # off level
+    out = call(args[0], lvl, T, gx, gy, init, valid, *args[7:])
+    for i in range(2 * k):
+        one = call(args[0], lvl[i:i + 1], T[i:i + 1], gx[i:i + 1],
+                   gy[i:i + 1], init[i:i + 1], valid[i:i + 1], *args[7:])
+        assert _same_all([o[i:i + 1] for o in out], one), i
+    torch.cuda.synchronize()
+    # the pattern repeats: every pair equals the first k pairs
+    for o in out:
+        o2 = o[:2 * k * (n // (2 * k))].reshape((n // (2 * k), 2 * k)
+                                                + tuple(o.shape[1:]))
+        assert all(_same_all([o2[j]], [o2[0]]) for j in range(o2.shape[0]))
+
+
+@pytest.mark.parametrize("half", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("form", ["align_iclk_kernel",
+                                  "align_iclk_window_kernel/ungated"])
+def test_iclk_halves_match_plain(wide_problem, form, half):
+    """Every patch size the kernels take, packed (2,304 rows; half 5 keeps
+    a warp a feature) and not (the first 767 rows, bit for bit the same
+    rows of the packed launch), within the gate's bounds of the plain
+    version (at half 4 also its accuracy bound).  At half 1 the 2x2
+    system amplifies the two versions' different summation orders (one
+    feature of 2,304 lands 0.052 px from the plain version's, the parent
+    kernel's bits too), so align_iclk is held there to the window form's
+    bound, p90 <= 0.05 px and max <= 0.5 px."""
+    x = wide_problem
+    args = _iclk_args(x, half=half)
+    call = _iclk(form)
+    k = call(*args)
+    few = call(*_iclk_args(x, slice(0, 767), half=half))
+    p = call(*args, use_pallas=False)
+    torch.cuda.synchronize()
+    assert _same_all([o[:767] for o in k], few)
+    _agrees_with_plain(form, k, p, x["uv"] if half == 4 else None,
+                       window_bound=half == 1)
+
+
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_iclk_packed_batch_matches_single_launches(packed_problem, form):
+    """A batched launch of 11 x 256 rows (packed) gives each frame the bits
+    of its own single launch of 256 rows (a warp a feature)."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    frames, xb = packed_problem
+    kernel = silicon_gate.kernel_of(form)
+    assert pk.iclk_residency(4, "window" in form, 11 * 256)[
+        "features_per_warp"] == 2
+    pk.reset_launch_counts()
+    out = silicon_gate.batched_kernel_calls(xb)[form](True)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES[kernel] == 1
+    for b, x in enumerate(frames):
+        one = silicon_gate.gate_calls(x)[form](True)
+        assert _same_all([o[b] for o in out], one), b
+
+
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_iclk_vmap_takes_moved_and_expanded_args(packed_problem, form):
+    """torch.func.vmap over the per-frame wrapper with the features' batch
+    dimension last but the patch's (moved) and one template shared by
+    every frame (expanded): one launch, bit for bit the batched wrapper on
+    the same values laid out contiguously."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate
+    _, xb = packed_problem
+    B, N = xb["lvl"].shape
+    h, w = xb["h"], xb["w"]
+    moved = {k: xb[k].movedim(0, 1).contiguous()
+             for k in ("lvl", "rdx", "rdy", "init", "valid")}
+    shared = xb["ref"][0]
+
+    def single(stack, lvl, T, gx, gy, init, valid):
+        return _iclk(form)(stack, lvl, T, gx, gy, init, valid, h, w)
+
+    pk.reset_launch_counts()
+    got = torch.func.vmap(single, in_dims=(0, 1, None, 1, 1, 1, 1))(
+        xb["stack"], moved["lvl"], shared, moved["rdx"], moved["rdy"],
+        moved["init"], moved["valid"])
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES[silicon_gate.kernel_of(form)] == 1
+    want = _iclk(form, batched=True)(
+        xb["stack"], xb["lvl"], shared.expand(B, N, 8, 8).contiguous(),
+        xb["rdx"], xb["rdy"], xb["init"], xb["valid"], h, w)
+    torch.cuda.synchronize()
+    assert _same_all(got, want)
+
+
+@pytest.mark.parametrize("form", ICLK_FORMS)
+def test_batched_iclk_dispatch_counts(packed_problem, form):
+    """A batched ICLK call is its three output allocations and one launch:
+    at most 3 ATen ops and exactly 1 device activity."""
+    from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.utils.profiling import dispatch_counts
+    _, xb = packed_problem
+    fn = silicon_gate.batched_kernel_calls(xb)[form]
+    fn(True)
+    n_ops, n_dev = dispatch_counts(lambda: fn(True))
+    assert n_ops <= 3 and n_dev == 1, (n_ops, n_dev)

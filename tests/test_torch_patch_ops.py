@@ -580,3 +580,79 @@ class TestDispatch:
             t(stack), t(x["lvl"]), t(x["ref"]), t(x["dx"]), t(x["dy"]),
             t(x["uv"] + x["off"]), t(x["valid"]), 10, H, W, window=False)
         assert 0 < n_upd <= 10 * int(x["valid"].sum())
+
+    @pytest.mark.parametrize("window", [False, True])
+    @pytest.mark.parametrize("bad", ["lvl_int64", "init_float64",
+                                     "valid_uint8", "rows_not_per_frame",
+                                     "stack_3d", "lvl_strided",
+                                     "valid_strided", "gx_transposed",
+                                     "patch_rows"])
+    def test_batched_iclk_checks_before_launch(self, stack, problem, bad,
+                                               window):
+        """The ICLK kernels' (B, N) form (two frames' stacks, rows read in
+        place) converts nothing: another type, shape or layout, or rows
+        that are not one row of N per frame, raise before any allocation
+        or launch (its checks run here)."""
+        x = problem
+        st = torch.stack([t(stack), t(stack)])
+        args = dict(lvl=t(np.stack([x["lvl"]] * 2)),
+                    T=t(np.stack([x["ref"]] * 2)),
+                    gx=t(np.stack([x["dx"]] * 2)),
+                    gy=t(np.stack([x["dy"]] * 2)),
+                    uv0=t(np.stack([x["uv"] + x["off"]] * 2)),
+                    valid=t(np.stack([x["valid"]] * 2)))
+        if bad == "lvl_int64":
+            args["lvl"] = args["lvl"].long()
+        elif bad == "init_float64":
+            args["uv0"] = args["uv0"].double()
+        elif bad == "valid_uint8":
+            args["valid"] = args["valid"].to(torch.uint8)
+        elif bad == "rows_not_per_frame":
+            st = st[:1]
+        elif bad == "stack_3d":
+            st = st[0]
+        elif bad == "lvl_strided":
+            args["lvl"] = args["lvl"].t().contiguous().t()
+        elif bad == "valid_strided":
+            args["valid"] = args["valid"].t().contiguous().t()
+        elif bad == "gx_transposed":
+            args["gx"] = args["gx"].transpose(2, 3)
+        else:
+            args["T"] = args["T"][:, :-1]
+        pk.reset_launch_counts()
+        err = TypeError if bad.endswith(("int64", "float64", "uint8")) \
+            else ValueError
+        with pytest.raises(err):
+            if window:
+                pk._align_window_kernel(st, n_iter=10, h=H, w=W,
+                                        zmssd_factor=None,
+                                        min_patch_std=None, **args)
+            else:
+                pk._align_kernel(st, n_iter=10, h=H, w=W, **args)
+        assert all(v == 0 for v in pk.LAUNCHES.values())
+
+    def test_iclk_rows_read_in_place(self):
+        """`_row_args`: (N, ...) rows and (B, N, ...) rows at one common row
+        stride are read in place (row i at i times the stride); a moved or
+        expanded (B, N, ...) input is reshaped to B*N rows of the same
+        values, and that tensor is returned for the caller to keep."""
+        B, n, p = 3, 5, 8
+        T = torch.arange(B * 7 * p * p, dtype=torch.float32).reshape(
+            B, 7, p, p)
+        cases = {"contiguous": T[:, :n].contiguous(), "rows_cut": T[:, :n],
+                 "moved": T[:, :n].transpose(0, 1).contiguous()
+                 .transpose(0, 1), "expanded": T[0, :n].expand(B, n, p, p)}
+        for name, v in cases.items():
+            kept, ptr, s_n, s_r = pk._row_args(v, "T", (B, n), (p, p), -1)
+            in_place = name == "contiguous"
+            assert (kept is v) == in_place, name
+            assert ptr == kept.data_ptr() and s_r == p, name
+            flat = v.reshape(B * n, p, p)
+            for i in range(B * n):
+                got = kept.reshape(-1)[i * s_n:]
+                assert torch.equal(got[:p * p].reshape(p, p), flat[i]), name
+        uv = torch.zeros((n, 3))[:, ::2]
+        kept, _, s_n, s_c = pk._row_args(uv, "uv", (n,), (2,), -1)
+        assert kept is uv and (s_n, s_c) == (3, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            pk._row_args(T[:, :n].transpose(2, 3), "T", (B, n), (p, p), -1)
