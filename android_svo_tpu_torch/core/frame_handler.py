@@ -2,11 +2,15 @@
 with RELOCALIZING on tracking failure, and local bundle adjustment after
 every `loba_every_n_kfs`-th keyframe — port of
 `android_svo_tpu/core/frame_handler.py`.
+
+Each `add_image` is one unit span `tot_time` (`utils/profiling.py`); the
+first and second frame, with the map built from them, span `bootstrap`;
+a tracked frame's call spans `fused_track_dispatch` and its six result
+reads are `host_read`s (site `result`).
 """
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -19,12 +23,13 @@ from android_svo_tpu_torch.core import pipeline, state as st
 from android_svo_tpu_torch.core.initialization import (bootstrap_pair,
                                                        ransac_draws)
 from android_svo_tpu_torch.core.reprojector import _kf_cam_pos
-from android_svo_tpu_torch.core.scatter import compact, set_rows
+from android_svo_tpu_torch.core.scatter import compact, set_rows, take_row
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import detect, matcher
 from android_svo_tpu_torch.ops.detect import cell_index
 from android_svo_tpu_torch.ops.pyramid import build_pyramid, stack_from_pyramid
 from android_svo_tpu_torch.parallel.ba import local_ba, select_core_keyframes
+from android_svo_tpu_torch.utils import profiling
 
 STAGE_PAUSED = 0
 STAGE_FIRST_FRAME = 1
@@ -176,8 +181,10 @@ class FrameHandler:
     CPU `torch.Generator` seeded with `seed`, so a run on either device
     samples the same minimal sets.  `perf_mon` (a
     `utils.profiling.PerformanceMonitor`, or None) times the stages and
-    writes one trace record per frame.  `n_local_ba` counts the local BA
-    runs dispatched since the last reset."""
+    writes one trace record per frame; the spans go to the installed
+    monitor (`profiling.install`), with or without a `perf_mon`.
+    `n_local_ba` counts the local BA runs dispatched since the last
+    reset."""
 
     def __init__(self, cam, cfg: SVOConfig = SVOConfig(),
                  init_T_cw: Optional[SE3] = None, seed: int = 0,
@@ -211,9 +218,11 @@ class FrameHandler:
 
     def add_image(self, img, timestamp: float = 0.0) -> TrackResult:
         if self.perf_mon is None:
-            return self._add_image(img)
+            with profiling.span("tot_time"):
+                return self._add_image(img)
         with self.perf_mon.timer("tot_time"):
             res = self._add_image(img)
+        # the monitor's own read, outside the frame and its count
         self.perf_mon.log("frame_id", int(self.vo.frame_id))
         self.perf_mon.log("stage", self.stage)
         self.perf_mon.log("result", res.result)
@@ -226,7 +235,7 @@ class FrameHandler:
 
     def _timer(self, name):
         if self.perf_mon is None:
-            return contextlib.nullcontext()
+            return profiling.span(name)
         return self.perf_mon.timer(name)
 
     def _frame(self, img) -> torch.Tensor:
@@ -240,9 +249,11 @@ class FrameHandler:
     def _add_image(self, img) -> TrackResult:
         img = self._frame(img)
         if self.stage == STAGE_FIRST_FRAME:
-            return self._process_first(img)
+            with profiling.span("bootstrap"):
+                return self._process_first(img)
         if self.stage == STAGE_SECOND_FRAME:
-            return self._process_second(img)
+            with profiling.span("bootstrap"):
+                return self._process_second(img)
         if self.stage in (STAGE_DEFAULT_FRAME, STAGE_RELOCALIZING):
             return self._process_default(img)
         return TrackResult(T_cw=self.init_T_cw, stage=self.stage,
@@ -251,7 +262,7 @@ class FrameHandler:
     def _process_first(self, img) -> TrackResult:
         with self._timer("pyramid_creation"):
             pyr, det = self._pyr_det(img)
-            n = int(det["valid"].sum())
+            n = profiling.host_read(det["valid"].sum(), "bootstrap")
         if n >= self.cfg.init_min_kps:
             self._first = (pyr, det)
             self.stage = STAGE_SECOND_FRAME
@@ -266,15 +277,18 @@ class FrameHandler:
                               self.device)
         boot = bootstrap_pair(ref_pyr, cur_pyr, self.cam, det["px"],
                               det["valid"], self.cfg, de, dh)
-        if int(boot["n_tracked"]) < self.cfg.init_min_tracked:
+        if (profiling.host_read(boot["n_tracked"], "bootstrap")
+                < self.cfg.init_min_tracked):
             self.stage = STAGE_FIRST_FRAME
             self._first = None
             return TrackResult(T_cw=self.init_T_cw, stage=self.stage,
                                result=pipeline.RES_FAILURE)
-        if float(boot["disparity"]) < self.cfg.init_min_disparity:
+        if (profiling.host_read(boot["disparity"], "bootstrap")
+                < self.cfg.init_min_disparity):
             return TrackResult(T_cw=self.init_T_cw, stage=self.stage,
                                result=pipeline.RES_NO_KEYFRAME)
-        if int(boot["n_inliers"]) < self.cfg.init_min_inliers:
+        if (profiling.host_read(boot["n_inliers"], "bootstrap")
+                < self.cfg.init_min_inliers):
             return TrackResult(T_cw=self.init_T_cw, stage=self.stage,
                                result=pipeline.RES_NO_KEYFRAME)
         boot = dict(boot)
@@ -294,7 +308,7 @@ class FrameHandler:
             self._prepare_relocalization()
         with self._timer("fused_track_dispatch"):
             self.vo, out = self._track(self.vo, img)
-            host = {k: int(out[k]) for k in (
+            host = {k: profiling.host_read(out[k], "result") for k in (
                 "result", "n_tracked", "n_matches", "n_edges", "n_seeds",
                 "n_points")}
         result = host["result"]
@@ -356,10 +370,10 @@ class FrameHandler:
         kfs = vo.kfs.replace(q_kw=q2, t_kw=t2)
         newest = torch.argmax(torch.where(
             kfs.valid, kfs.frame_id, torch.full_like(kfs.frame_id, -1)))
-        is_cur = kfs.frame_id[newest] == (vo.frame_id - 1)
+        is_cur = take_row(kfs.frame_id, newest) == (vo.frame_id - 1)
         last = vo.last.replace(
-            q_fw=torch.where(is_cur, q2[newest], vo.last.q_fw),
-            t_fw=torch.where(is_cur, t2[newest], vo.last.t_fw))
+            q_fw=torch.where(is_cur, take_row(q2, newest), vo.last.q_fw),
+            t_fw=torch.where(is_cur, take_row(t2, newest), vo.last.t_fw))
         return vo.replace(kfs=kfs, points=pts.replace(pos=pos2), last=last)
 
     def relocalize_frame_at_pose(self, kf_frame_id: int, T_cw_guess: SE3,
@@ -387,7 +401,8 @@ class FrameHandler:
                                  dim=-1)
         dist = torch.where(vo.kfs.valid, dist,
                            torch.full_like(dist, float("inf")))
-        self._seat_on_keyframe(int(torch.argmin(dist)))
+        self._seat_on_keyframe(profiling.host_read(torch.argmin(dist),
+                                                   "reloc"))
 
     def _seat_on_keyframe(self, k: int):
         """Make keyframe slot k (its image, stored pose and features) the

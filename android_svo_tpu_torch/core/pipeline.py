@@ -2,18 +2,21 @@
 pose GN -> structure GN -> seed updates -> keyframe policy — port of
 `android_svo_tpu/core/pipeline.py`.
 
-Runs eagerly: keyframe insertion is a Python `if` on one scalar read, and
-the state is updated functionally (every write builds a new tensor), so the
-keyframe arena and the last frame never alias.  Each stage is a
-`record_function` range named after the reference's timers, so a
-`torch.profiler` trace attributes host and device time to stages.
+Runs eagerly: keyframe insertion is a Python `if` on one scalar read
+(`profiling.host_read`, site `keyframe`), and the state is updated
+functionally (every write builds a new tensor), so the keyframe arena and
+the last frame never alias.  Each stage is a span named after the
+reference's timers (`utils/profiling.py`: `pyramid_creation`,
+`sparse_img_align`, `reproject`, `pose_optimizer`, `point_optimizer`,
+`depth_filter`, `keyframe`), recorded with its host times while a monitor
+is installed and a profiler range while `torch.profiler` runs; with
+neither, a span costs one check.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.utils._pytree as _pytree
-from torch.profiler import record_function
 
 from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import depth_filter as df
@@ -26,12 +29,14 @@ from android_svo_tpu_torch.core.reprojector import (_kf_cam_pos,
                                                     keyframe_overlap,
                                                     reproject_map)
 from android_svo_tpu_torch.core.scatter import (add_rows, compact,
-                                                gather_rows, set_rows)
+                                                gather_rows, put_row,
+                                                set_rows, take_row)
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.geometry.triangulation import masked_median
 from android_svo_tpu_torch.ops import detect, interp, matcher
 from android_svo_tpu_torch.ops.pyramid import build_pyramid, stack_from_pyramid
 from android_svo_tpu_torch.ops.sparse_align import sparse_img_align
+from android_svo_tpu_torch.utils import profiling
 
 RES_FAILURE = 0
 RES_NO_KEYFRAME = 1
@@ -201,14 +206,13 @@ def select_kf_slot(vo: st.VOState, T_cw: SE3) -> torch.Tensor:
 def _set_slot(table: torch.Tensor, slot: torch.Tensor, row, commit=None):
     """table.at[slot].set(row) for a (K, ...) arena and a 0-d slot; with a
     0-d bool `commit`, the slot's old row is written back where it is false
-    (one row moves, not the arena)."""
-    out = table.clone()
+    (one row moves, not the arena).  The slot is never read back to the
+    host."""
     if commit is not None:
         row = torch.where(commit, torch.as_tensor(row, dtype=table.dtype,
                                                 device=table.device),
-                          out[slot])
-    out[slot] = row
-    return out
+                          take_row(table, slot))
+    return put_row(table, slot, row)
 
 
 def insert_keyframe(vo: st.VOState, cur_pyr, cur_stack, T_cw: SE3, feats,
@@ -224,7 +228,7 @@ def insert_keyframe(vo: st.VOState, cur_pyr, cur_stack, T_cw: SE3, feats,
     C = dims["C"]
     K = vo.kfs.valid.shape[0]
     slot = select_kf_slot(vo, T_cw)
-    evicting = vo.kfs.valid[slot]
+    evicting = take_row(vo.kfs.valid, slot)
 
     # ---- scrub state tied to an evicted keyframe ---------------------------
     seeds = vo.seeds
@@ -389,7 +393,7 @@ def need_new_keyframe(vo: st.VOState, T_cw: SE3, scene_depth, cam,
 
 def frame_pyramid(img: torch.Tensor, cfg: SVOConfig):
     """The frame's pyramid (a tuple of levels) and its padded stack."""
-    with record_function("pyramid_creation"):
+    with profiling.span("pyramid_creation"):
         cur_pyr = build_pyramid(img, cfg.total_pyr_levels)
         return cur_pyr, stack_from_pyramid(cur_pyr)
 
@@ -415,13 +419,13 @@ def track_map(vo: st.VOState, cur_stack, T_cur_last: SE3, cam,
     T_cw = T_cur_last.compose(vo.last.T_fw)
 
     # STEP 2: map reprojection + feature alignment
-    with record_function("reproject"):
+    with profiling.span("reproject"):
         feats, points2, n_matches = reproject_map(vo, cur_stack, T_cw,
                                                   cam, cfg, dims)
         vo = vo.replace(points=points2)
 
     # STEP 3: pose optimization
-    with record_function("pose_optimizer"):
+    with profiling.span("pose_optimizer"):
         p_w = gather_rows(vo.points.pos, feats["point"])
         T_cw_opt, inlier, n_edges, cov, _, _ = optimize_pose(
             T_cw, p_w, feats["f"], feats["level"], feats["valid"],
@@ -431,7 +435,7 @@ def track_map(vo: st.VOState, cur_stack, T_cur_last: SE3, cam,
                                      torch.full_like(feats["point"], -1))
 
     # STEP 4: structure optimization
-    with record_function("point_optimizer"):
+    with profiling.span("point_optimizer"):
         pts = vo.points
         slots, sel = select_points_for_optim(
             pts.last_optim, pts.valid & (pts.obs_count >= 2),
@@ -459,11 +463,11 @@ def track_map(vo: st.VOState, cur_stack, T_cur_last: SE3, cam,
                   t=torch.where(failure, vo.last.t_fw, T_cw_opt.t))
 
     # STEP 5: depth-filter update
-    with record_function("depth_filter"):
+    with profiling.span("depth_filter"):
         vo = update_seeds(vo, cur_stack, T_final, cam, cfg)
 
     # STEP 6 (decision): a keyframe where no keyframe is close
-    with record_function("keyframe"):
+    with profiling.span("keyframe"):
         xyz_cur = T_final.apply(gather_rows(vo.points.pos, feats["point"]))
         scene_depth = masked_median(xyz_cur[..., 2], feats["valid"])
         scene_depth = torch.where(torch.isfinite(scene_depth), scene_depth,
@@ -508,7 +512,7 @@ def make_track_frame(cfg: SVOConfig, cam, dims):
         cur_pyr, cur_stack = frame_pyramid(img, cfg)
 
         # STEP 1: sparse image alignment against the last frame
-        with record_function("sparse_img_align"):
+        with profiling.span("sparse_img_align"):
             depth_last, has_pt = align_inputs(vo)
             last = vo.last
             T_cur_last, n_tracked, _ = sparse_img_align(
@@ -519,9 +523,9 @@ def make_track_frame(cfg: SVOConfig, cam, dims):
         vo, feats, T_final, cov, failure, make_kf, n_matches, n_edges = \
             track_map(vo, cur_stack, T_cur_last, cam, cfg, dims)
 
-        # STEP 6: keyframe insertion (the step's one host read)
-        with record_function("keyframe"):
-            if bool(make_kf.item()):
+        # STEP 6: keyframe insertion (the stage's one host read)
+        with profiling.span("keyframe"):
+            if profiling.host_read(make_kf, "keyframe"):
                 vo = insert_keyframe(vo, cur_pyr, cur_stack, T_final, feats,
                                      cam, cfg, dims)
         return finish_frame(vo, cur_stack, T_final, feats, cov, failure,

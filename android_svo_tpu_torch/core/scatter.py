@@ -50,6 +50,20 @@ def compact(mask: torch.Tensor, size: int) -> torch.Tensor:
     return out.scatter(0, dst, torch.arange(n, device=mask.device))[:size]
 
 
+def take_row(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src[idx] for a 0-d index tensor, read on the device: indexing with a
+    0-d tensor reads the index back to the host (`aten::item`, a blocking
+    copy from the card); a one-row `index_select` does not."""
+    return src.index_select(0, idx.reshape(1).to(torch.int64))[0]
+
+
+def put_row(dst: torch.Tensor, idx: torch.Tensor, row) -> torch.Tensor:
+    """dst with row idx (a 0-d index tensor) set to `row` (broadcast), as
+    a new tensor, without reading the index back to the host."""
+    row = torch.as_tensor(row, dtype=dst.dtype, device=dst.device)
+    return dst.index_put((idx.reshape(1).to(torch.int64),), row)
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """src[idx] with -1 (and any out-of-range index) clamped into range —
     the rows it reads for sentinel indices are masked by the caller."""

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from android_svo_tpu_torch import resolve_device
+from android_svo_tpu_torch.utils import profiling
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -37,9 +38,11 @@ _lib = None
 
 def build() -> Path:
     """Run make on `native/` into `build/torch_native/` (one process at a
-    time: a file lock serialises concurrent builds); raises if it fails."""
+    time: a file lock serialises concurrent builds); raises if it fails.
+    Span `build.native_feeder`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with profiling.span("build.native_feeder"), \
+            open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         proc = subprocess.run(
             ["make", "-C", str(NATIVE_DIR), f"BUILD={BUILD_DIR}"],

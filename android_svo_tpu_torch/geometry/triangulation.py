@@ -87,8 +87,11 @@ def essential_from_pose(T_cur_ref: SE3) -> torch.Tensor:
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Lower median of the valid entries (index (n-1)//2 of the sorted
-    valid values), arena-safe: padding sorts to +inf."""
+    valid values), arena-safe: padding sorts to +inf.  The index stays on
+    the device (a one-row `index_select`: a 0-d tensor index would be read
+    back to the host)."""
     n = torch.sum(mask.to(torch.int64))
     xs = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))),
                     dim=-1).values
-    return xs[torch.clamp(n - 1, min=0) // 2]
+    k = torch.clamp(n - 1, min=0) // 2
+    return xs.index_select(0, k.reshape(1))[0]

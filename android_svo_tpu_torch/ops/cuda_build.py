@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from android_svo_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -136,11 +138,13 @@ def build(force: bool = False) -> Path:
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; the sources' digest
+    and the load, or the compile, are span `build.cuda_kernels`)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        bind(lib, [*_SIGNATURES, *_QUERIES])
+        with profiling.span("build.cuda_kernels"):
+            lib = ctypes.CDLL(str(build()))
+            bind(lib, [*_SIGNATURES, *_QUERIES])
         _lib = lib
     return _lib
 

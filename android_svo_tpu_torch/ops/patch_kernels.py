@@ -48,9 +48,15 @@ CPU the batched plain version runs the per-frame plain version on the B*L
 planes, each feature reading plane b*L + level.  Outside a `torch.func`
 transform a wrapper calls its op's body directly (`_call`): the single path
 pays no dispatcher cost, and its ATen ops are those of the body.
+
+Each call is one span `patch.<function>` (`utils/profiling.py`): the body
+and the batched form each open it, and a call runs exactly one of them
+(the body alone, or the vmap rule's batched form alone).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -58,6 +64,7 @@ from android_svo_tpu_torch.geometry.linsolve import inv_spd
 from android_svo_tpu_torch.ops import interp
 from android_svo_tpu_torch.ops.cuda_build import (check, contiguous,
                                                   launch, stream)
+from android_svo_tpu_torch.utils import profiling
 
 # feature_alignment.cpp:276: min_update_squared = 0.03*0.03
 MIN_UPDATE_SQUARED = 0.03 * 0.03
@@ -102,6 +109,20 @@ def _call(op, body, *args):
     if torch._C._functorch.maybe_current_level() is None:
         return body(*args)
     return op(*args)
+
+
+def _spanned(function: str):
+    """Run the decorated body or batched form inside span
+    `patch.<function>`."""
+    name = "patch." + function
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with profiling.span(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def _planes(stack: torch.Tensor, lvl: torch.Tensor, wrap: bool):
@@ -224,6 +245,7 @@ def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
     return out
 
 
+@_spanned("sample_patches")
 def _sample_body(stack, lvl, uv, half, grad, valid, use_pallas):
     if _on_card(stack, use_pallas):
         return _sample_kernel(stack, lvl, uv, half, grad, valid)
@@ -237,6 +259,7 @@ _sample_op = torch.library.custom_op(
            "Tensor? valid, bool use_pallas) -> Tensor")
 
 
+@_spanned("sample_patches")
 def sample_patches_batched(stack, lvl, uv, half: int, grad: bool = False,
                            valid=None, use_pallas=True):
     """sample_patches for a batch: stack (B, L, Hp, Wp), lvl (B, N), uv
@@ -389,6 +412,7 @@ def _epi_scan_plain(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
                        half, h, w, plane=plane, L=L)
 
 
+@_spanned("epi_scan")
 def _scan_body(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max, half,
                n_steps_each, h, w, use_pallas):
     if _on_card(stack, use_pallas):
@@ -406,6 +430,7 @@ _scan_op = torch.library.custom_op(
            "-> (Tensor, Tensor)")
 
 
+@_spanned("epi_scan")
 def epi_scan_batched(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
                      half: int = 4, n_steps_each=None, h: int | None = None,
                      w: int | None = None, use_pallas=True):
@@ -627,6 +652,7 @@ def _flat_features(B: int, N: int, ref_patch, ref_dx, ref_dy, init_uv,
             valid.reshape(B * N))
 
 
+@_spanned("align_iclk")
 def _align_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                 n_iter, h, w, use_pallas):
     if _on_card(stack, use_pallas):
@@ -643,6 +669,7 @@ _align_op = torch.library.custom_op(
            "int w, bool use_pallas) -> (Tensor, Tensor, Tensor)")
 
 
+@_spanned("align_iclk")
 def align_iclk_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                        n_iter: int, h: int | None = None,
                        w: int | None = None, use_pallas=True):
@@ -781,6 +808,7 @@ def _dump_kernel(stack, lvl, uv, valid, n_per: int | None = None):
     return wins, org
 
 
+@_spanned("dump_windows")
 def _dump_body(stack, lvl, uv, valid, use_pallas):
     if _on_card(stack, use_pallas):
         return _dump_kernel(stack, lvl, uv, valid)
@@ -793,6 +821,7 @@ _dump_op = torch.library.custom_op(
            "bool use_pallas) -> (Tensor, Tensor)")
 
 
+@_spanned("dump_windows")
 def dump_windows_batched(stack, lvl, uv, valid, use_pallas=None):
     """dump_windows for a batch: stack (B, L, Hp, Wp) (or (L, Hp, Wp),
     shared by every frame), lvl / valid (B, N), uv (B, N, 2).  Returns
@@ -964,6 +993,7 @@ def _align_iclk_mxu_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
     return uv, converged, mean
 
 
+@_spanned("align_iclk_mxu")
 def _align_mxu_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                     n_iter, h, w, use_pallas, zmssd_factor, min_patch_std):
     if _on_card(stack, use_pallas):
@@ -983,6 +1013,7 @@ _align_mxu_op = torch.library.custom_op(
            "float? min_patch_std) -> (Tensor, Tensor, Tensor)")
 
 
+@_spanned("align_iclk_mxu")
 def align_iclk_mxu_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
                            valid, n_iter: int, h: int | None = None,
                            w: int | None = None, use_pallas=True,

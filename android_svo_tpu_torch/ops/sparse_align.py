@@ -6,8 +6,10 @@ The JAX while-loop stops a level on the first non-improving step (GN) or a
 tiny update (both methods); one more iteration after such a stop would
 still overwrite the best-so-far registers, so the loop is not freeze-safe.
 Here the loop breaks on the host on the same condition (one scalar read per
-iteration), which reproduces the JAX carry exactly; the batched form keeps
-a stopped element's carry and reads `any(active)` instead.  Under LM the
+iteration, `profiling.host_read` site `align_stop`), which reproduces the
+JAX carry exactly; the batched form keeps a stopped element's carry and
+reads `any(active)` instead (site `align_active`).  Each iteration adds one
+to the installed monitor's `align_iters`.  Under LM the
 iterate steps every iteration, also when chi2 got worse: only the best-so-far
 registers keep the best iterate, and the damping mu (0.01 at the start of
 each level) grows tenfold after a worse step and relaxes to max(mu/3, 1e-8)
@@ -24,6 +26,7 @@ from android_svo_tpu_torch.geometry.se3 import SE3, hat
 from android_svo_tpu_torch.ops import interp
 from android_svo_tpu_torch.ops import patch_kernels as pk
 from android_svo_tpu_torch.ops.reduce import fixed_sum
+from android_svo_tpu_torch.utils import profiling
 
 
 def _geo_jacobian(p: torch.Tensor) -> torch.Tensor:
@@ -196,16 +199,17 @@ def sparse_img_align(ref_stack, cur_stack, cam, T_cur_ref_init: SE3,
         for _ in range(cfg.img_align_n_iter):
             new, stop = step(cur_stack, xyz_ref, ok_ref, patch_ref, J, carry)
             ITERATIONS[-1] += 1
+            profiling.count("align_iters")
             if not batched:
                 carry = new
-                if bool(stop.item()):        # one host read per iteration
+                if profiling.host_read(stop, "align_stop"):
                     break
                 continue
             carry = tuple(
                 torch.where(active.reshape(lead + (1,) * (c.dim() - 1)),
                             nc, c) for nc, c in zip(new, carry))
             active = active & ~stop
-            if not bool(active.any().item()):
+            if not profiling.host_read(active.any(), "align_active"):
                 break
         T = SE3(q=carry[2], t=carry[3])
         chi2_out = carry[4]

@@ -20,7 +20,9 @@ of the single step become one read each for the whole batch:
 Every patch kernel is a custom op whose vmap rule launches once for the
 whole batch (`ops/patch_kernels.py`), so a step's launches do not grow with
 B, and no Python loop over the sequences runs on the path.  Each element
-gives what `make_track_frame` gives for that sequence alone.
+gives what `make_track_frame` gives for that sequence alone.  A step is
+one unit span `batched_step` (`utils/profiling.py`) around the stages'
+spans, and its reads are `profiling.host_read`s.
 
 `make_sharded_track` splits the batch over the mesh's "data" axis and holds
 the seed and landmark arenas as row shards over "map"
@@ -31,7 +33,6 @@ from __future__ import annotations
 
 import torch
 from torch.func import vmap
-from torch.profiler import record_function
 
 from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import pipeline
@@ -40,6 +41,7 @@ from android_svo_tpu_torch.core.state import init_batched_state  # noqa: F401
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops.sparse_align import sparse_img_align
 from android_svo_tpu_torch.parallel import mesh as mesh_lib
+from android_svo_tpu_torch.utils import profiling
 
 
 def make_batched_track(cfg: SVOConfig, cam, dims):
@@ -48,13 +50,13 @@ def make_batched_track(cfg: SVOConfig, cam, dims):
     value of `out_b` has a leading batch axis (`T_cw` an SE3 of (B, 4) and
     (B, 3))."""
 
-    def track_b(vo_b: st.VOState, imgs: torch.Tensor):
+    def step(vo_b: st.VOState, imgs: torch.Tensor):
         batch = imgs.shape[0]
         cur_pyr, cur_stack = vmap(
             lambda im: pipeline.frame_pyramid(im, cfg))(imgs)
 
         # STEP 1: sparse image alignment, batched loop
-        with record_function("sparse_img_align"):
+        with profiling.span("sparse_img_align"):
             depth_last, has_pt = vmap(pipeline.align_inputs)(vo_b)
             last = vo_b.last
             T_cur_last, n_tracked, _ = sparse_img_align(
@@ -69,8 +71,8 @@ def make_batched_track(cfg: SVOConfig, cam, dims):
 
         # STEP 6: keyframe insertion where an element decided on one (the
         # batch's one host read)
-        with record_function("keyframe"):
-            if bool(make_kf.any().item()):
+        with profiling.span("keyframe"):
+            if profiling.host_read(make_kf.any(), "keyframe"):
                 vo_b = vmap(lambda vo, pyr, cs, T, ft, mk:
                             pipeline.insert_keyframe(
                                 vo, pyr, cs, T, ft, cam, cfg, dims,
@@ -79,6 +81,10 @@ def make_batched_track(cfg: SVOConfig, cam, dims):
         return vmap(pipeline.finish_frame)(
             vo_b, cur_stack, T_final, feats, cov, failure, make_kf,
             n_tracked, n_matches, n_edges)
+
+    def track_b(vo_b: st.VOState, imgs: torch.Tensor):
+        with profiling.span("batched_step"):
+            return step(vo_b, imgs)
 
     return track_b
 

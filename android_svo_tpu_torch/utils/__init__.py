@@ -1,1 +1,2 @@
-"""Per-stage timing and device tracing (`profiling.py`)."""
+"""Host spans and counters, per-frame timers and device tracing
+(`profiling.py`)."""

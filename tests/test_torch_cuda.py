@@ -1313,3 +1313,95 @@ def test_batched_iclk_dispatch_counts(packed_problem, form):
     fn(True)
     n_ops, n_dev = dispatch_counts(lambda: fn(True))
     assert n_ops <= 3 and n_dev == 1, (n_ops, n_dev)
+
+
+# ---------------------------------------------------------------------------
+# the program's spans on the card (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+SPAN_OF_KERNEL = (("align_iclk_window_kernel", "patch.align_iclk_mxu"),
+                  ("align_iclk_kernel", "patch.align_iclk"),
+                  ("sample_patches_kernel", "patch.sample_patches"),
+                  ("epi_scan_kernel", "patch.epi_scan"))
+
+
+def test_spans_bracket_the_work_they_launch(card, tmp_path):
+    """Five tracked frames, one of them inserting a keyframe, with the
+    recorder on, under `device_trace`: on
+    the profiler's clock each frame's span holds the launch of every
+    device activity (matched to its launch by correlation id), each patch
+    kernel is launched inside a span of its patch function, and the
+    frames' device-to-host copies are exactly their `host_read`s.  The
+    spans' profiler ranges are annotations, so the profiler's own device
+    spans of them are not counted as work, and the Chrome trace holds the
+    spans beside the kernels."""
+    import json
+    from torch.autograd import DeviceType
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.utils import profiling
+    cam = synthetic.default_camera(320, 240)
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024)
+    imgs = [synthetic.render(tex, cam, synthetic.lookdown_pose(
+        0.05 * i, 0.015 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i,
+                                    0.004 * i))) for i in range(11)]
+    handler = fh.FrameHandler(cam, SVOConfig(init_min_disparity=20.0,
+                                             loba_n_iter=0))
+    for img in (imgs[0], imgs[4], imgs[5]):
+        handler.add_image(img)
+    assert handler.stage == fh.STAGE_DEFAULT_FRAME
+    torch.cuda.synchronize()
+    mon = profiling.install()
+    try:
+        with profiling.device_trace(str(tmp_path)) as prof:
+            results = [handler.add_image(img).result for img in imgs[6:11]]
+            torch.cuda.synchronize()
+    finally:
+        profiling.uninstall()
+    assert pipeline.RES_IS_KEYFRAME in results
+    assert pipeline.RES_FAILURE not in results
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() != DeviceType.CUDA]
+    ranges = {e.name() for e in host if e.is_user_annotation()}
+    spans = mon.spans()
+    assert {s.name for s in spans} - {"tot_time"} <= ranges
+    launch = {e.correlation_id(): e.start_ns() for e in host
+              if e.name().startswith("cu") and e.correlation_id()}
+    work = [e for e in events if e.device_type() == DeviceType.CUDA
+            and e.name() not in ranges and e.correlation_id() in launch]
+    assert work
+
+    def inside(t, name):
+        return any(mon.profiler_ns(s.start_ns) - 20_000 <= t
+                   <= mon.profiler_ns(s.end_ns) + 20_000
+                   for s in spans if s.name == name)
+
+    frames = [s for s in spans if s.name == "tot_time"]
+    assert len(frames) == 5
+    for e in work:
+        assert inside(launch[e.correlation_id()], "tot_time"), e.name()
+    n_patch = 0
+    for e in work:
+        for kernel, name in SPAN_OF_KERNEL:
+            if kernel in e.name():
+                assert inside(launch[e.correlation_id()], name), e.name()
+                n_patch += 1
+                break
+    assert n_patch == sum(s.name.startswith("patch.") for s in spans)
+    d2h = [e for e in work if "DtoH" in e.name()]
+
+    def where(t):                  # the host ranges and ops open at time t
+        return [e.name() for e in sorted(host, key=lambda e: e.start_ns())
+                if e.start_ns() <= t <= e.end_ns()
+                and not e.name().startswith("cu")][-4:]
+
+    other = [where(launch[e.correlation_id()]) for e in d2h
+             if not any(inside(launch[e.correlation_id()], s.name)
+                        for s in spans if s.name.startswith("host_read."))]
+    assert len(d2h) == mon.counters["host_reads"] == sum(
+        s.name.startswith("host_read.") for s in spans), other
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    cats = {e.get("cat") for e in trace["traceEvents"]}
+    assert {"program_span", "kernel"} <= cats
