@@ -11,6 +11,10 @@ from android_svo_tpu_torch.geometry import robust
 from android_svo_tpu_torch.geometry.camera import project2d
 from android_svo_tpu_torch.geometry.linsolve import inv_spd, solve_spd
 from android_svo_tpu_torch.geometry.se3 import SE3
+from android_svo_tpu_torch.ops import pose_gn
+from android_svo_tpu_torch.ops.cuda_build import (batch_first, call_op,
+                                                  cfg_use_pallas, on_card,
+                                                  use_kernels)
 from android_svo_tpu_torch.ops.reduce import fixed_sum
 from android_svo_tpu_torch.ops.sparse_align import _geo_jacobian
 
@@ -23,8 +27,64 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
     `cfg.poseoptim_method == "lm"` scales the normal equations' diagonal by
     (1 + mu), mu starting at 0.01, relaxing to max(mu/3, 1e-8) on an
     accepted step and growing tenfold on a rejected one; any other method
-    is Gauss-Newton, as in the JAX package."""
-    lm = cfg.poseoptim_method == "lm"
+    is Gauss-Newton, as in the JAX package.
+
+    On CUDA tensors (with `cfg.use_pallas`) the whole refinement is one
+    launch of `pose_gn_kernel` (`ops/pose_gn.py`); on CPU tensors, or with
+    `use_pallas` off, it is `optimize_pose_plain`.  There is no fallback.
+    Under `torch.func.vmap` the call is the op `svo_torch::pose_gn`, whose
+    vmap rule makes the batch one launch; outside a `torch.func` transform
+    the op's body is called directly (`call_op`)."""
+    q, t, *rest = call_op(
+        _op, _body, T_fw_init.q, T_fw_init.t, p_w, f_meas, level, valid,
+        focal, int(cfg.poseoptim_n_iter), float(cfg.poseoptim_thresh),
+        cfg.poseoptim_method == "lm", use_kernels(cfg_use_pallas(cfg)))
+    return (SE3(q=q, t=t), *rest)
+
+
+def _body(q, t, p_w, f_meas, level, valid, focal, n_iter, thresh, lm,
+          use_pallas):
+    if on_card(p_w, use_pallas):
+        return pose_gn.pose_gn(q, t, p_w, f_meas, level, valid, focal,
+                               n_iter, thresh, lm)
+    T, *rest = optimize_pose_plain(SE3(q=q, t=t), p_w, f_meas, level, valid,
+                                   focal, n_iter, thresh, lm)
+    if n_iter == 0:                # the start itself; an op returns no input
+        return (T.q.clone(), T.t.clone(), *rest)
+    return (T.q, T.t, *rest)
+
+
+_op = torch.library.custom_op(
+    "svo_torch::pose_gn", _body, mutates_args=(),
+    schema="(Tensor q, Tensor t, Tensor p_w, Tensor f_meas, Tensor level, "
+           "Tensor valid, Tensor focal, int n_iter, float thresh, bool lm, "
+           "bool use_pallas) -> (Tensor, Tensor, Tensor, Tensor, Tensor, "
+           "Tensor, Tensor)")
+
+
+@_op.register_vmap
+def _vmap(info, in_dims, q, t, p_w, f_meas, level, valid, focal, n_iter,
+          thresh, lm, use_pallas):
+    """The batch as one launch of B blocks on the card; on the CPU the
+    plain version frame by frame (a vmap rule cannot open another
+    `torch.func.vmap`), bit for bit the single calls either way."""
+    B = info.batch_size
+    args = [batch_first(x, d, B) for x, d in
+            zip((q, t, p_w, f_meas, level, valid, focal), in_dims)]
+    if on_card(p_w, use_pallas):
+        out = pose_gn.pose_gn_batched(*args, n_iter, thresh, lm)
+    else:
+        frames = [_body(*(a[b] for a in args), n_iter, thresh, lm, False)
+                  for b in range(B)]
+        out = tuple(torch.stack(o) for o in zip(*frames))
+    return out, (0,) * 7
+
+
+def optimize_pose_plain(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
+                        n_iter: int, thresh: float, lm: bool):
+    """The plain version of `pose_gn_kernel` and `optimize_pose`'s CPU
+    path (`n_iter`, `thresh` and `lm` are `cfg.poseoptim_n_iter`,
+    `poseoptim_thresh` and whether the method is "lm")."""
     dtype = p_w.dtype
     dev = p_w.device
     lvl_scale = 1.0 / (2.0 ** level.to(dtype))
@@ -62,7 +122,7 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
     q, t = T_fw_init.q, T_fw_init.t
     # LM damping; nothing is made for GN (no device work on the default path)
     mu = torch.tensor(0.01, dtype=dtype, device=dev) if lm else None
-    for it in range(cfg.poseoptim_n_iter):
+    for it in range(n_iter):
         # Tukey scale re-seated at ~1 px from iteration 5 on
         it_scale = scale_fixed if it >= 5 else scale0
         T = SE3(q=q, t=t)
@@ -81,13 +141,12 @@ def optimize_pose(T_fw_init: SE3, p_w, f_meas, level, valid, focal,
         if lm:
             mu = torch.where(accept, torch.clamp(mu / 3.0, min=1e-8),
                              mu * 10.0)
-    scale = scale_fixed if cfg.poseoptim_n_iter > 5 else scale0
+    scale = scale_fixed if n_iter > 5 else scale0
     T_out = SE3(q=q, t=t)
 
     e, xyz_f, ok = residuals(T_out)
     enorm = torch.linalg.norm(e, dim=-1)
-    thresh = cfg.poseoptim_thresh / focal
-    inlier = ok & (enorm < thresh)
+    inlier = ok & (enorm < thresh / focal)
     w = robust.tukey_weight(enorm / scale) * ok.to(dtype)
     _, _, H = normal_eq(xyz_f, w)
     H = H + 1e-6 * eye6 * (torch.diagonal(H).sum() / 6.0 + 1.0)

@@ -9,10 +9,15 @@ source's name and bytes and of the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
 
 The launch plumbing every wrapper shares (`ops/patch_kernels.py`,
-`ops/gather_probe.py`) is here too: `check` and `contiguous` raise on an
-input the kernel does not take (the wrappers convert nothing), `stream` is
-the current raw stream, and `launch` calls a launcher, raises on its
-cudaError_t and adds one to the wrapper module's launch count.
+`ops/gather_probe.py`, `ops/pose_gn.py`) is here too: `check` and
+`contiguous` raise on an input the kernel does not take (the wrappers
+convert nothing), `stream` is the current raw stream, and `launch` calls a
+launcher, raises on its cudaError_t and adds one to the wrapper module's
+launch count.  So is the dispatch every custom op shares
+(`ops/patch_kernels.py`, `core/pose_opt.py`): `cfg_use_pallas` and
+`use_kernels` read the knob, `on_card` decides kernel or plain version,
+`call_op` calls an op's body directly outside a `torch.func` transform, and
+`batch_first` moves a vmap rule's argument's batch dimension first.
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ _SIGNATURES = {
     "launch_dump_windows": [_P, _LL, _LL, _LL, _I, _I, _I, _P, _P, _LL,
                             _LL, _P, _I, _I, _P, _P, _P],
     "launch_probe_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "launch_pose_gn": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL,
+                       _P, _LL, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P],
 }
 # queries a source may define beside its launchers (each returns a
 # cudaError_t): the ICLK layout and its residency on the card
@@ -147,6 +155,43 @@ def library():
             bind(lib, [*_SIGNATURES, *_QUERIES])
         _lib = lib
     return _lib
+
+
+def cfg_use_pallas(cfg) -> bool | None:
+    """Map the config knob to the dispatch argument, as the JAX package
+    does: True by config is "auto" (None: the kernels for CUDA tensors, the
+    plain versions for CPU tensors), False forces the plain versions."""
+    return None if cfg.use_pallas else False
+
+
+def use_kernels(use_pallas) -> bool:
+    """The dispatch argument with None ("auto") read as True: the tensors'
+    device then decides."""
+    return True if use_pallas is None else bool(use_pallas)
+
+
+def on_card(t: torch.Tensor, use_pallas) -> bool:
+    """Whether a call on t launches its kernel (else the plain version)."""
+    return use_kernels(use_pallas) and t.is_cuda
+
+
+def call_op(op, body, *args):
+    """A custom op inside a `torch.func` transform, where the op's vmap
+    rule batches the call; outside one, the op's body itself, which spares
+    the single path the dispatcher's per-call cost."""
+    if torch._C._functorch.maybe_current_level() is None:
+        return body(*args)
+    return op(*args)
+
+
+def batch_first(x, d, B: int):
+    """A vmap rule's argument with its batch dimension first (an unbatched
+    one expanded to the batch, which costs no copy)."""
+    if x is None:
+        return None
+    if d is None:
+        return x.expand((B,) + tuple(x.shape))
+    return x.movedim(d, 0)
 
 
 def stream(device: int) -> int:

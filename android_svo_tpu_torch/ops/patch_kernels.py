@@ -46,7 +46,7 @@ whole batch (`LAUNCHES` adds one per batched call; the sampler and the
 ICLKs read the (B, N) rows in place, the others flatten them); on the
 CPU the batched plain version runs the per-frame plain version on the B*L
 planes, each feature reading plane b*L + level.  Outside a `torch.func`
-transform a wrapper calls its op's body directly (`_call`): the single path
+transform a wrapper calls its op's body directly (`call_op`): the single path
 pays no dispatcher cost, and its ATen ops are those of the body.
 
 Each call is one span `patch.<function>` (`utils/profiling.py`): the body
@@ -62,8 +62,10 @@ import torch
 
 from android_svo_tpu_torch.geometry.linsolve import inv_spd
 from android_svo_tpu_torch.ops import interp
-from android_svo_tpu_torch.ops.cuda_build import (check, contiguous,
-                                                  launch, stream)
+# cfg_use_pallas: the JAX module's name for the knob's reading, kept here
+from android_svo_tpu_torch.ops.cuda_build import (  # noqa: F401
+    batch_first, call_op, cfg_use_pallas, check, contiguous, launch, on_card,
+    stream, use_kernels)
 from android_svo_tpu_torch.utils import profiling
 
 # feature_alignment.cpp:276: min_update_squared = 0.03*0.03
@@ -83,32 +85,6 @@ LAUNCHES = {
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def cfg_use_pallas(cfg) -> bool | None:
-    """Map the config knob to the dispatch argument, as the JAX package
-    does: True by config is "auto" (None: the kernels for CUDA tensors, the
-    plain versions for CPU tensors), False forces the plain versions."""
-    return None if cfg.use_pallas else False
-
-
-def _pallas(use_pallas) -> bool:
-    """The dispatch argument with None ("auto") read as True: the tensors'
-    device then decides."""
-    return True if use_pallas is None else bool(use_pallas)
-
-
-def _on_card(t: torch.Tensor, use_pallas) -> bool:
-    return _pallas(use_pallas) and t.is_cuda
-
-
-def _call(op, body, *args):
-    """A wrapper's custom op inside a `torch.func` transform, where the
-    op's vmap rule batches the call; outside one, the op's body itself,
-    which spares the single path the dispatcher's per-call cost."""
-    if torch._C._functorch.maybe_current_level() is None:
-        return body(*args)
-    return op(*args)
 
 
 def _spanned(function: str):
@@ -138,16 +114,6 @@ def _planes(stack: torch.Tensor, lvl: torch.Tensor, wrap: bool):
     lv = lv.clamp(0, L - 1)
     base = torch.arange(B, device=lvl.device)[:, None] * L
     return stack.reshape((B * L,) + stack.shape[2:]), (base + lv).reshape(-1)
-
-
-def _rows(x, d, B: int):
-    """A vmap rule's argument with its batch dimension first (an unbatched
-    one expanded to the batch, which costs no copy)."""
-    if x is None:
-        return None
-    if d is None:
-        return x.expand((B,) + tuple(x.shape))
-    return x.movedim(d, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +213,7 @@ def _sample_kernel(stack, lvl, uv, half: int, grad: bool, valid):
 
 @_spanned("sample_patches")
 def _sample_body(stack, lvl, uv, half, grad, valid, use_pallas):
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _sample_kernel(stack, lvl, uv, half, grad, valid)
     out = _sample_plain(stack, lvl, uv, half, grad)
     return torch.stack(out) if grad else out
@@ -268,7 +234,7 @@ def sample_patches_batched(stack, lvl, uv, half: int, grad: bool = False,
     reading the (B, N) rows in place; a mask or level tensor whose rows
     are not contiguous (a vmap rule's moved or expanded argument) is made
     so."""
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         out = _sample_kernel(stack, lvl.contiguous(), uv, half, grad,
                              None if valid is None else valid.contiguous())
         return out.unbind(0) if grad else out
@@ -281,8 +247,9 @@ def _sample_vmap(info, in_dims, stack, lvl, uv, half, grad, valid,
     B = info.batch_size
     d_stack, d_lvl, d_uv, _, _, d_valid, _ = in_dims
     out = sample_patches_batched(
-        _rows(stack, d_stack, B), _rows(lvl, d_lvl, B), _rows(uv, d_uv, B),
-        half, grad, _rows(valid, d_valid, B), use_pallas)
+        batch_first(stack, d_stack, B), batch_first(lvl, d_lvl, B),
+        batch_first(uv, d_uv, B), half, grad,
+        batch_first(valid, d_valid, B), use_pallas)
     if grad:
         return torch.stack(out), 1
     return out, 0
@@ -304,8 +271,8 @@ def sample_patches(stack, lvl, uv, half: int, grad: bool = False,
     the ctypes call and the launch (tools/patch_ab.py's wrapper_split).  On
     the CPU the plain version computes every slot from uv as given.  Under
     `torch.func.vmap` the batch takes one launch (`sample_patches_batched`)."""
-    out = _call(_sample_op, _sample_body, stack, lvl, uv, half, grad, valid,
-                _pallas(use_pallas))
+    out = call_op(_sample_op, _sample_body, stack, lvl, uv, half, grad,
+                  valid, use_kernels(use_pallas))
     return out.unbind(0) if grad else out
 
 
@@ -415,7 +382,7 @@ def _epi_scan_plain(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
 @_spanned("epi_scan")
 def _scan_body(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max, half,
                n_steps_each, h, w, use_pallas):
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _scan_kernel(stack, lvl, uv_a, uv_b, n_steps_each, ref_patch,
                             n_steps_max, half, h, w)
     return _epi_scan_plain(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max,
@@ -445,7 +412,7 @@ def epi_scan_batched(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
     flat = (lvl.reshape(B * N), uv_a.reshape(B * N, 2),
             uv_b.reshape(B * N, 2), ref_patch.reshape(B * N, p, p),
             None if n_steps_each is None else n_steps_each.reshape(B * N))
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         t, sc = _scan_kernel(stack, flat[0], flat[1], flat[2], flat[4],
                              flat[3], n_steps_max, half, h, w, n_per=N)
     else:
@@ -462,9 +429,10 @@ def _scan_vmap(info, in_dims, stack, lvl, uv_a, uv_b, ref_patch, n_steps_max,
     B = info.batch_size
     d = in_dims
     out = epi_scan_batched(
-        _rows(stack, d[0], B), _rows(lvl, d[1], B), _rows(uv_a, d[2], B),
-        _rows(uv_b, d[3], B), _rows(ref_patch, d[4], B), n_steps_max, half,
-        _rows(n_steps_each, d[7], B), h, w, use_pallas)
+        batch_first(stack, d[0], B), batch_first(lvl, d[1], B),
+        batch_first(uv_a, d[2], B), batch_first(uv_b, d[3], B),
+        batch_first(ref_patch, d[4], B), n_steps_max, half,
+        batch_first(n_steps_each, d[7], B), h, w, use_pallas)
     return out, (0, 0)
 
 
@@ -487,9 +455,9 @@ def epi_scan(stack, lvl, uv_a, uv_b, ref_patch, n_steps_max: int,
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    return _call(_scan_op, _scan_body, stack, lvl, uv_a, uv_b, ref_patch,
-                 int(n_steps_max), int(half), n_steps_each, int(h), int(w),
-                 _pallas(use_pallas))
+    return call_op(_scan_op, _scan_body, stack, lvl, uv_a, uv_b, ref_patch,
+                   int(n_steps_max), int(half), n_steps_each, int(h), int(w),
+                   use_kernels(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -655,7 +623,7 @@ def _flat_features(B: int, N: int, ref_patch, ref_dx, ref_dy, init_uv,
 @_spanned("align_iclk")
 def _align_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                 n_iter, h, w, use_pallas):
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _align_kernel(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
                              valid, n_iter, h, w)
     return _align_iclk_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
@@ -683,7 +651,7 @@ def align_iclk_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     L, hp, wp = stack.shape[-3:]
     h = hp if h is None else h
     w = wp if w is None else w
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _align_kernel(stack, lvl.contiguous(), ref_patch, ref_dx,
                              ref_dy, init_uv, valid.contiguous(), n_iter, h,
                              w)
@@ -702,10 +670,10 @@ def _align_vmap(info, in_dims, stack, lvl, ref_patch, ref_dx, ref_dy,
     B = info.batch_size
     d = in_dims
     out = align_iclk_batched(
-        _rows(stack, d[0], B), _rows(lvl, d[1], B),
-        _rows(ref_patch, d[2], B), _rows(ref_dx, d[3], B),
-        _rows(ref_dy, d[4], B), _rows(init_uv, d[5], B),
-        _rows(valid, d[6], B), n_iter, h, w, use_pallas)
+        batch_first(stack, d[0], B), batch_first(lvl, d[1], B),
+        batch_first(ref_patch, d[2], B), batch_first(ref_dx, d[3], B),
+        batch_first(ref_dy, d[4], B), batch_first(init_uv, d[5], B),
+        batch_first(valid, d[6], B), n_iter, h, w, use_pallas)
     return out, (0, 0, 0)
 
 
@@ -727,9 +695,9 @@ def align_iclk(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    return _call(_align_op, _align_body, stack, lvl, ref_patch, ref_dx,
-                 ref_dy, init_uv, valid, int(n_iter), int(h), int(w),
-                 _pallas(use_pallas))
+    return call_op(_align_op, _align_body, stack, lvl, ref_patch, ref_dx,
+                   ref_dy, init_uv, valid, int(n_iter), int(h), int(w),
+                   use_kernels(use_pallas))
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +778,7 @@ def _dump_kernel(stack, lvl, uv, valid, n_per: int | None = None):
 
 @_spanned("dump_windows")
 def _dump_body(stack, lvl, uv, valid, use_pallas):
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _dump_kernel(stack, lvl, uv, valid)
     return dump_windows_plain(stack, lvl, uv, valid)
 
@@ -832,7 +800,7 @@ def dump_windows_batched(stack, lvl, uv, valid, use_pallas=None):
     B, N = lvl.shape
     flat = (lvl.reshape(B * N), uv.reshape(B * N, 2),
             None if valid is None else valid.reshape(B * N))
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         wins, org = _dump_kernel(stack, *flat, n_per=N)
     else:
         if stack.dim() == 3:
@@ -847,8 +815,8 @@ def _dump_vmap(info, in_dims, stack, lvl, uv, valid, use_pallas):
     B = info.batch_size
     d = in_dims
     out = dump_windows_batched(
-        _rows(stack, d[0], B), _rows(lvl, d[1], B), _rows(uv, d[2], B),
-        _rows(valid, d[3], B), use_pallas)
+        batch_first(stack, d[0], B), batch_first(lvl, d[1], B),
+        batch_first(uv, d[2], B), batch_first(valid, d[3], B), use_pallas)
     return out, (0, 0)
 
 
@@ -866,8 +834,8 @@ def dump_windows(stack, lvl, uv, valid, use_pallas=None):
     On the CPU (or with use_pallas=False) the plain version copies every
     row's window, as the JAX fallback does: compare valid rows.  Under
     `torch.func.vmap` the batch takes one launch (`dump_windows_batched`)."""
-    return _call(_dump_op, _dump_body, stack, lvl, uv, valid,
-                 _pallas(use_pallas))
+    return call_op(_dump_op, _dump_body, stack, lvl, uv, valid,
+                   use_kernels(use_pallas))
 
 
 def _onehot_patch(wins, u, v, p: int):
@@ -996,7 +964,7 @@ def _align_iclk_mxu_plain(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
 @_spanned("align_iclk_mxu")
 def _align_mxu_body(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
                     n_iter, h, w, use_pallas, zmssd_factor, min_patch_std):
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _align_window_kernel(stack, lvl, ref_patch, ref_dx, ref_dy,
                                     init_uv, valid, n_iter, h, w,
                                     zmssd_factor, min_patch_std)
@@ -1026,7 +994,7 @@ def align_iclk_mxu_batched(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv,
     L, hp, wp = stack.shape[-3:]
     h = hp if h is None else h
     w = wp if w is None else w
-    if _on_card(stack, use_pallas):
+    if on_card(stack, use_pallas):
         return _align_window_kernel(stack, lvl.contiguous(), ref_patch,
                                     ref_dx, ref_dy, init_uv,
                                     valid.contiguous(), n_iter, h, w,
@@ -1047,10 +1015,10 @@ def _align_mxu_vmap(info, in_dims, stack, lvl, ref_patch, ref_dx, ref_dy,
     B = info.batch_size
     d = in_dims
     out = align_iclk_mxu_batched(
-        _rows(stack, d[0], B), _rows(lvl, d[1], B),
-        _rows(ref_patch, d[2], B), _rows(ref_dx, d[3], B),
-        _rows(ref_dy, d[4], B), _rows(init_uv, d[5], B),
-        _rows(valid, d[6], B), n_iter, h, w, use_pallas, zmssd_factor,
+        batch_first(stack, d[0], B), batch_first(lvl, d[1], B),
+        batch_first(ref_patch, d[2], B), batch_first(ref_dx, d[3], B),
+        batch_first(ref_dy, d[4], B), batch_first(init_uv, d[5], B),
+        batch_first(valid, d[6], B), n_iter, h, w, use_pallas, zmssd_factor,
         min_patch_std)
     return out, (0, 0, 0)
 
@@ -1079,9 +1047,9 @@ def align_iclk_mxu(stack, lvl, ref_patch, ref_dx, ref_dy, init_uv, valid,
     L, hp, wp = stack.shape
     h = hp if h is None else h
     w = wp if w is None else w
-    return _call(
+    return call_op(
         _align_mxu_op, _align_mxu_body, stack, lvl, ref_patch, ref_dx, ref_dy,
-        init_uv, valid, int(n_iter), int(h), int(w), _pallas(use_pallas),
+        init_uv, valid, int(n_iter), int(h), int(w), use_kernels(use_pallas),
         None if zmssd_factor is None else float(zmssd_factor),
         None if min_patch_std is None else float(min_patch_std))
 

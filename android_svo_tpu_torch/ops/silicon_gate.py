@@ -9,7 +9,10 @@ give it (a form is named `kernel/form`); `run_gate` runs kernel and plain
 version on the same inputs and returns the deviations and the failures.
 `batched_gate_inputs`, `batched_kernel_calls` and `run_batched_gate` do the
 same for the batched forms (B frames, one launch per call), which must also
-equal the B single launches bit for bit.  Used by `chip_smoke.py`.
+equal the B single launches bit for bit.  `pose_inputs`,
+`projection_gap_px` and `compare_pose` hold `pose_gn_kernel` against
+`core/pose_opt.py::optimize_pose_plain` on the same inputs.  Used by
+`chip_smoke.py` and the card tests.
 """
 
 from __future__ import annotations
@@ -375,3 +378,99 @@ def run_batched_gate(frames: list, xb: dict) -> GateReport:
             f.startswith(f"{name}: frame") for f in rep.failures)
     rep.ok = not rep.failures
     return rep
+
+
+# ---------------------------------------------------------------------------
+# pose refinement: pose_gn_kernel against optimize_pose_plain
+# ---------------------------------------------------------------------------
+
+POSE_FOCAL = 458.654               # EuRoC cam0's fx, the cells' focal
+POSE_GAP_PX = 0.05                 # pose tolerance, px of projection gap
+
+
+def pose_inputs(seed: int, n: int = 912, valid_share: float = 0.8,
+                behind: float = 0.0, outliers: float = 0.1, device="cuda"):
+    """One frame's refinement problem: n points 2-6 units ahead, seen from
+    a pose a small twist away from the start (identity) as noisy bearings,
+    a share of them outliers, a share marked invalid, a share mirrored
+    behind the camera; levels 0-2.  Returns optimize_pose's inputs but the
+    config: (T_fw_init, p_w, f_meas, level, valid, focal)."""
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    g = torch.Generator().manual_seed(seed)
+    p_w = (torch.randn(n, 3, generator=g) * torch.tensor([2.0, 1.5, 1.0])
+           + torch.tensor([0.0, 0.0, 4.0]))
+    xyz = SE3.exp(torch.randn(6, generator=g) * 0.03).apply(p_w)
+    f = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    f = f + torch.randn(n, 3, generator=g) * 0.0015
+    out = torch.rand(n, generator=g) < outliers
+    f = torch.where(out[:, None], f + torch.randn(n, 3, generator=g) * 0.05,
+                    f)
+    back = torch.rand(n, generator=g) < behind
+    p_w = torch.where(back[:, None], p_w * torch.tensor([1.0, 1.0, -1.0]),
+                      p_w)
+    level = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    valid = torch.rand(n, generator=g) < valid_share
+    T0 = SE3(q=torch.tensor([1.0, 0.0, 0.0, 0.0], device=device),
+             t=torch.zeros(3, device=device))
+    return (T0, *(x.to(device) for x in (p_w, f, level, valid)),
+            torch.tensor(POSE_FOCAL, device=device))
+
+
+def projection_gap_px(Ta, Tb, p_w, valid) -> float:
+    """The widest gap (px at the cells' focal) between the projections of
+    the valid points at least one unit in front of both poses (the scene's
+    points lie about 2-6 ahead; a gap grows as 1/z^2, so the few the
+    generator puts near z = 0 would measure that, not the poses)."""
+    a, b = Ta.apply(p_w), Tb.apply(p_w)
+    ok = valid & (a[:, 2] > 1.0) & (b[:, 2] > 1.0)
+    d = torch.linalg.norm(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:], dim=-1)
+    return float(d[ok].max()) * POSE_FOCAL if bool(ok.any()) else 0.0
+
+
+def compare_pose(k, p, args, thresh: float):
+    """optimize_pose's outputs on the kernel (k) against the plain
+    version's (p) on the same inputs (`args`, as `pose_inputs` gives them).
+    Only the order of the sums differs, so the tolerances are rounding's:
+      - pose: 0.05 px of projection gap.  A step whose cost lies within
+        rounding of the current cost can be kept on one side and refused
+        on the other (GN stops moving at its first refused step), which
+        parts the poses by a fraction of a step near the optimum;
+      - chi2_init: 1e-5 relative (the same residuals summed in another
+        order); chi2_final 1e-3 relative plus 1e-9 (at the two poses);
+      - cov: 1e-2 of its largest entry (the final system at the two poses;
+        its smallest pivots amplify the difference);
+      - inliers: equal but for rows whose error lies within 0.05 px of the
+        threshold (`thresh`, px), and the count is the mask's.
+    Returns (the deviations, the failures)."""
+    _, p_w, f, level, valid, _ = args
+    gap = projection_gap_px(k[0], p[0], p_w, valid)
+    cov_d = float((k[3] - p[3]).abs().max())
+    cov_scale = float(p[3].abs().max())
+    detail = {"gap_px": gap, "cov_d": cov_d, "cov_scale": cov_scale,
+              "chi2_init": (float(k[4]), float(p[4])),
+              "chi2_final": (float(k[5]), float(p[5])),
+              "n_inliers": (int(k[2]), int(p[2])),
+              "inlier_flips": int((k[1] != p[1]).sum())}
+    failures = []
+    if not gap <= POSE_GAP_PX:
+        failures.append(f"pose: projection gap {gap} px > {POSE_GAP_PX}")
+    if not torch.allclose(k[4], p[4], rtol=1e-5, atol=0.0):
+        failures.append(f"chi2_init {detail['chi2_init']}")
+    if not torch.allclose(k[5], p[5], rtol=1e-3, atol=1e-9):
+        failures.append(f"chi2_final {detail['chi2_final']}")
+    if not cov_d <= 1e-2 * cov_scale:
+        failures.append(f"cov: max |d| {cov_d} > 1e-2 x {cov_scale}")
+    if int(k[2]) != int(k[1].sum()):
+        failures.append(f"n_inliers {int(k[2])} is not the mask's "
+                        f"{int(k[1].sum())}")
+    differ = k[1] != p[1]
+    if bool(differ.any()):
+        xyz = p[0].apply(p_w)
+        uv = f[:, :2] / f[:, 2:]
+        e = (xyz[:, :2] / xyz[:, 2:] - uv) / (2.0 ** level.float())[:, None]
+        err_px = torch.linalg.norm(e, dim=-1) * POSE_FOCAL
+        far = differ & ~((err_px - thresh).abs() < 0.05)
+        if bool(far.any()):
+            failures.append(f"{int(far.sum())} inlier flips away from the "
+                            "threshold")
+    return detail, failures

@@ -43,6 +43,19 @@ every phase passed):
                grid_sample's (B-D's times at N=2048).
   3c. microbench — the gather microbench (tools/microbench_gather.py), the
                probe kernel's path; its launches are counted.
+  3d. pose   — pose_gn_kernel (optimize_pose on the card) against its plain
+               version (the same call with use_pallas=False) on the same
+               inputs, with the card tests' tolerances
+               (silicon_gate.compare_pose: projection gap <= 0.05 px, chi2
+               and cov to rounding, inliers equal but within 0.05 px of the
+               threshold), at 912 rows (the cells' arena at 752x480) and
+               768 (640x480), GN and LM, and through torch.func.vmap on 11
+               sequences of 912 rows (each sequence within those
+               tolerances of its plain version, bit for bit its single
+               launch); one launch per call, one device activity, at most
+               7 ATen ops for a frame, no read of the card back; the
+               wrapper's time, the kernel's device time, the plain
+               version's and the bound (pose_bound), single and batched.
   4. main    — FrameHandler at 640x480, SVOConfig(init_min_disparity=20,
                max_n_kfs=8, loba_n_iter=0), 40 frames of the bench orbit
                rendered on the card: bootstrap, tracking, keyframes.  Every
@@ -146,11 +159,15 @@ every phase passed):
                launch; each vmap call of the dump is one launch.
 Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
 plain run, 11) runs with the launch counts set to 0 just before it and read
-just after.  The tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every
-patch kernel but dump_windows_kernel, which only the public dump_windows
-runs (8b also not align_iclk_kernel); there its count must stay 0.
-Prints a `{"kernels": [...]}` line (all six kernels) and ends with one JSON
-line `{"ok": true, "device": {...}}`.
+just after; on a tracking path those of the patch kernels and of
+pose_gn_kernel, all 0 on each plain run.  The tracking paths (4, 6, 7, 8a,
+8b, 9, 10b) launch every patch kernel but dump_windows_kernel, which only
+the public dump_windows runs (8b also not align_iclk_kernel); there its
+count must stay 0.  They launch pose_gn_kernel once a tracked frame (4, 6,
+8a, 8b, 9) and once a batched step (10b; 7, which relocalizes, at least
+once).  Prints a `{"kernels": [...]}` line (all seven kernels; pose_gn's
+with its 768-row and batched forms and its launches per frame and step)
+and ends with one JSON line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -182,6 +199,9 @@ KERNEL_META = {
     "dump_windows_kernel": (
         "android_svo_tpu/ops/patch_pallas.py:692 (_dump_pallas) through "
         "android_svo_tpu/ops/patch_pallas.py:720 (dump_windows)"),
+    "pose_gn_kernel": (
+        "none: the JAX package leaves android_svo_tpu/core/pose_opt.py "
+        "(optimize_pose) to XLA"),
 }
 # the README's slice of the port that made each kernel what it is now
 REDESIGNED_IN = {"sample_patches_kernel": "slice 11",
@@ -199,6 +219,10 @@ PROBE_REPLACES = (
     "scripts/probe_pallas_variants.py:25 (make_kernel)")
 SOURCE = "android_svo_tpu_torch/csrc/patch_kernels.cu"
 PROBE_SOURCE = "android_svo_tpu_torch/csrc/gather_probe_kernels.cu"
+POSE_SOURCE = "android_svo_tpu_torch/csrc/pose_kernels.cu"
+POSE = "pose_gn_kernel"
+POSE_ROWS = (912, 768)    # the arena's rows at 752x480 (the cells) and
+                          # at 640x480 (phases 4-8)
 N_FRAMES = 40
 PROBE_SIZES = (2048, 32768)   # the reference's N, and 16x it
 N_ORBIT = 148            # bench.py's full orbit (make_poses(148, 0.02))
@@ -243,6 +267,29 @@ def require_path_launches(launches, what, absent=()):
             require(cnt == 0, f"{name} launched on the {what} path")
         else:
             require(cnt > 0, f"{name} was not launched on the {what} path")
+
+
+def reset_launches():
+    """Set the tracking path's launch counts to 0: the patch kernels' and
+    pose_gn_kernel's."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import pose_gn as pg
+    pk.reset_launch_counts()
+    pg.reset_launch_counts()
+
+
+def path_launches() -> dict:
+    """The tracking path's launch counts: the patch kernels' and
+    pose_gn_kernel's."""
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import pose_gn as pg
+    return {**pk.LAUNCHES, **pg.LAUNCHES}
+
+
+def require_pose_per_frame(launches, n_units, what, unit="tracked frame"):
+    """One pose_gn_kernel launch per tracked frame (or batched step)."""
+    require(launches[POSE] == n_units, f"{POSE} launched {launches[POSE]} "
+            f"times on the {what} path for {n_units} {unit}s")
 
 
 def log(msg):
@@ -601,19 +648,19 @@ def profiled_dispatch(fn, counts, name, what, attempts=6):
     return n_ops, n_dev
 
 
-def run_with_plain(cfg, cam, imgs, poses, device, pk, what):
+def run_with_plain(cfg, cam, imgs, poses, device, what):
     """`run_sequence` on the kernels and again on the plain versions, each
     with the launch counts set to 0 just before it and read just after.
     Checks that the plain run makes no launch, tracks the same frames and
     puts the camera centres within 5e-3 of the kernel run."""
-    pk.reset_launch_counts()
+    reset_launches()
     run = run_sequence(cfg, cam, imgs, poses, device)
-    launches = dict(pk.LAUNCHES)
-    pk.reset_launch_counts()
+    launches = path_launches()
+    reset_launches()
     run_p = run_sequence(cfg.replace(use_pallas=False), cam, imgs, poses,
                          device)
-    require(all(v == 0 for v in pk.LAUNCHES.values()),
-            f"{what}: the plain run launched kernels: {pk.LAUNCHES}")
+    require(all(v == 0 for v in path_launches().values()),
+            f"{what}: the plain run launched kernels: {path_launches()}")
     require(run_p["n_fail"] == 0, f"{what}: plain run failed "
             f"{run_p['n_fail']} frames")
     require(run_p["est"].shape == run["est"].shape,
@@ -862,7 +909,7 @@ def dataset_phase(dev, label, workdir):
     n_fail = n_tracked = 0
     cube_in_front = []          # (frame written, all cube corners ahead)
     order = []
-    pk.reset_launch_counts()
+    reset_launches()
     for i, frame in feeder:
         order.append(i)
         frames.append(frame)
@@ -903,7 +950,7 @@ def dataset_phase(dev, label, workdir):
             save_handler(ckpt, handler)
         elif i > CKPT_AT:
             tail_a.append(res.T_cw.t.cpu().numpy())
-    launches = dict(pk.LAUNCHES)
+    launches = path_launches()
     wait_ms = feeder.wait_s * 1e3 / N_ORBIT
     feeder.close()
     ate = ate_rmse(np.array(est), np.array(gt)) if len(est) >= 3 else \
@@ -924,6 +971,7 @@ def dataset_phase(dev, label, workdir):
     require(n_fail == 0, f"dataset path: {n_fail} tracking failures")
     require(n_ba >= 1, "dataset path never ran local BA")
     require_path_launches(launches, "dataset")
+    require_pose_per_frame(launches, n_tracked, "dataset")
     require(math.isfinite(ate) and ate <= 0.02,
             f"dataset path ATE {ate} > 0.02")
     # every decoded frame, kept to the end: exact (decode, and no pinned
@@ -1209,20 +1257,21 @@ def batched_phase(dev, label, workdir):
     track_b = make_batched_track(cfg, cam, dims)
     vo_b = vo0
     outs, step_ms, per_step, iters_b = [], [], [], []
-    pk.reset_launch_counts()
+    reset_launches()
     for k in range(N_BATCH):
-        before = dict(pk.LAUNCHES)
+        before = path_launches()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         vo_b, out = track_b(vo_b, frames_b[k])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         iters_b.append(list(sparse_align.ITERATIONS))
-        per_step.append({n: pk.LAUNCHES[n] - before[n] for n in before})
+        after = path_launches()
+        per_step.append({n: after[n] - before[n] for n in before})
         outs.append({"t_wc": out["t_wc"].cpu().numpy(),
                      "t": out["T_cw"].t.cpu().numpy(),
                      "result": out["result"].cpu().numpy()})
-    launches_b = dict(pk.LAUNCHES)
+    launches_b = path_launches()
     codes = np.stack([o["result"] for o in outs])          # (T, B)
     n_fail = (codes == pipeline.RES_FAILURE).sum(0)
     kf = codes == pipeline.RES_IS_KEYFRAME
@@ -1242,6 +1291,7 @@ def batched_phase(dev, label, workdir):
     require(mixed >= 1, "no step where some but not all sequences took a "
             "keyframe")
     require_path_launches(launches_b, "batched")
+    require_pose_per_frame(launches_b, N_BATCH, "batched", "batched step")
 
     # the single step of each sequence over the first N_SINGLE frames
     track = pipeline.make_track_frame(cfg, cam, dims)
@@ -1249,7 +1299,7 @@ def batched_phase(dev, label, workdir):
     for b in range(N_SEQ):
         vo = states[b]
         for k in range(N_SINGLE):
-            before = dict(pk.LAUNCHES)
+            before = path_launches()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             vo, o = track(vo, frames_b[k, b])
@@ -1257,7 +1307,8 @@ def batched_phase(dev, label, workdir):
             single_ms.append((time.perf_counter() - t1) * 1e3)
             its = list(sparse_align.ITERATIONS)
             single_its.append((k, its))
-            got = {n: pk.LAUNCHES[n] - before[n] for n in before}
+            after = path_launches()
+            got = {n: after[n] - before[n] for n in before}
             d = float(np.abs(o["t_wc"].cpu().numpy()
                              - outs[k]["t_wc"][b]).max())
             d_single = max(d_single, d)
@@ -1329,7 +1380,7 @@ def batched_phase(dev, label, workdir):
                       for k, v in summ["stages"].items()}))
 
     # the batched plain versions: no launch, the same track
-    pk.reset_launch_counts()
+    reset_launches()
     track_p = make_batched_track(cfg.replace(use_pallas=False), cam, dims)
     vo_p, d_plain, codes_p = vo0, 0.0, []
     for k in range(N_BATCH):
@@ -1338,11 +1389,11 @@ def batched_phase(dev, label, workdir):
                                             - outs[k]["t_wc"]).max()))
         codes_p.append(o["result"].cpu().numpy())
     del vo_p
-    log(f"batched plain run: launches {json.dumps(pk.LAUNCHES)}, failures "
+    log(f"batched plain run: launches {json.dumps(path_launches())}, failures "
         f"{int((np.stack(codes_p) == pipeline.RES_FAILURE).sum())}, camera "
         f"centres max |d| vs the kernel run {d_plain:.3e} (limit 5e-3)")
-    require(all(v == 0 for v in pk.LAUNCHES.values()),
-            f"the batched plain run launched kernels: {pk.LAUNCHES}")
+    require(all(v == 0 for v in path_launches().values()),
+            f"the batched plain run launched kernels: {path_launches()}")
     require(d_plain <= 5e-3, f"batched plain centres {d_plain} > 5e-3")
     res.update({
         "frames": N_BATCH, "boot_frames": boot_at, "ate": ates,
@@ -1623,6 +1674,152 @@ def surface_phase(dev, label, x, traj):
             "phase_s": time.perf_counter() - t_phase}
 
 
+def pose_bound(n: int, n_iter: int, batch: int = 1):
+    """Least time of pose_gn_kernel on `batch` frames of n rows: the bytes
+    it must move (29 a row read: p_w, f_meas, level, valid; 1 a row
+    written: the inlier mask; 72 for the pose, focal and the scalars; 144
+    for cov) at the HBM's rate, or its fp32 operations at the fp32 peak:
+    a row costs ~36 in a weighted cost (transform, projection, norm, Tukey
+    weight) and ~170 in the normal equations (the 2x6 Jacobian, 21 + 6
+    products summed over two residuals), so ~242 an iteration (the cost at
+    the pose, the system, the cost at the step) and ~235 at the start and
+    the end (the residuals, the final system).  The kernel is bound by
+    neither: by the latency of its serial iterations."""
+    bytes_moved = batch * (n * 30 + 72 + 144)
+    flops = batch * n * (242 * n_iter + 235)
+    return bound(bytes_moved, flops)
+
+
+def pose_host_reads(fn):
+    """The names of the events in one profiled call of fn that read the
+    card back to the host (a 0-d read or a device-to-host copy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.name in ("aten::item", "aten::_local_scalar_dense")
+                   or "DtoH" in e.name or "Device -> Host" in e.name})
+
+
+def pose_phase(dev, label):
+    """Phase 3d: pose_gn_kernel against its plain version on the card
+    (optimize_pose with use_pallas off: ATen on the card) on the same
+    inputs, with the card tests' tolerances (`silicon_gate.compare_pose`),
+    at the arena's rows of the cells (912) and of phases 4-8 (768), GN and
+    LM, and through torch.func.vmap on 11 sequences of 912 rows (each
+    within the tolerances of its plain version and bit for bit its single
+    launch).  Each call is one launch and reads nothing back; the ATen ops
+    and device activities one call dispatches; the wrapper's time, the
+    kernel's device time, the plain version's time and the bound.  Returns
+    the numbers of each form (`rows912`, `rows768`, `batched_b11`)."""
+    import torch
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import pose_gn as pg
+    from android_svo_tpu_torch.ops import silicon_gate
+    from android_svo_tpu_torch.utils.profiling import device_ms
+
+    def checked(k, p, args, cfg, what):
+        detail, failures = silicon_gate.compare_pose(
+            k, p, args, cfg.poseoptim_thresh)
+        require(not failures, f"{POSE} ({what}) vs plain: {failures}")
+        return detail
+
+    def timed(fn, plain, what, n_ops_limit, n, batch=1):
+        n_ops, n_dev = profiled_dispatch(fn, pg.LAUNCHES, POSE, what)
+        require(n_dev == 1 and (n_ops_limit is None or n_ops <= n_ops_limit),
+                f"{POSE} ({what}) dispatches {n_ops} ATen ops and {n_dev} "
+                "device activities per call")
+        reads = pose_host_reads(fn)
+        require(not reads, f"{POSE} ({what}) reads the card back: {reads}")
+        b_ms, b_by, b_bytes, b_flops = pose_bound(n, 10, batch)
+        rec = {"ms": time_ms(fn),
+               "kernel_ms": device_ms(fn, POSE),
+               "plain_ms": time_ms(plain, iters=3 if batch > 1 else 5,
+                                   warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": b_bytes,
+               "bound_flops": b_flops, "host_ops_per_call": n_ops,
+               "device_activities_per_call": n_dev}
+        log(f"time {POSE} ({what}): wrapper {rec['ms']:.4f} ms, device "
+            f"{rec['kernel_ms']} ms, plain {rec['plain_ms']:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {n_ops} ATen ops and {n_dev} device "
+            f"activity a call, no host read [{label}]")
+        return rec
+
+    forms = {}
+    for n in POSE_ROWS:
+        for method in ("gn", "lm"):
+            cfg = SVOConfig(poseoptim_method=method)
+            args = silicon_gate.pose_inputs(1, n=n, device=dev)
+            pg.reset_launch_counts()
+            k = pose_opt.optimize_pose(*args, cfg)
+            p = pose_opt.optimize_pose(*args, cfg.replace(use_pallas=False))
+            torch.cuda.synchronize()
+            require(pg.LAUNCHES[POSE] == 1, f"{POSE} ({n} rows, {method}): "
+                    f"{pg.LAUNCHES[POSE]} launches for a kernel call and a "
+                    "plain one")
+            detail = checked(k, p, args, cfg, f"{n} rows, {method}")
+            log(f"{POSE} vs plain, {n} rows, {method}: " + json.dumps(detail))
+            if method == "gn":
+                forms[f"rows{n}"] = {"gap_px": detail["gap_px"], **timed(
+                    lambda: pose_opt.optimize_pose(*args, cfg),
+                    lambda: pose_opt.optimize_pose(
+                        *args, cfg.replace(use_pallas=False)),
+                    f"{n} rows", 7, n)}
+
+    # 11 sequences of 912 rows in one vmapped call, focal shared
+    n = POSE_ROWS[0]
+    cfg = SVOConfig()
+    scenes = [silicon_gate.pose_inputs(10 + s, n=n, outliers=0.05 * (s % 4),
+                                       behind=0.02 * (s % 3), device=dev)
+              for s in range(N_SEQ)]
+    q = torch.stack([sc[0].q for sc in scenes])
+    t = torch.stack([sc[0].t for sc in scenes]) + 0.01
+    rows = [torch.stack([sc[i] for sc in scenes]) for i in range(1, 5)]
+    focal = scenes[0][5]
+
+    def batched(c):
+        return torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
+            SE3(q=q, t=t), *r, focal, c))(q, t, *rows)
+
+    def frame(out, b):
+        return (SE3(q=out[0].q[b], t=out[0].t[b]), *(o[b] for o in out[1:]))
+
+    pg.reset_launch_counts()
+    out = batched(cfg)
+    out_p = batched(cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    require(pg.LAUNCHES[POSE] == 1, f"{POSE}: {pg.LAUNCHES[POSE]} launches "
+            f"for a vmapped call on {N_SEQ} sequences and its plain run")
+    gaps, exact = [], True
+    for b in range(N_SEQ):
+        args = (SE3(q=q[b], t=t[b]), *(r[b] for r in rows), focal)
+        gaps.append(checked(frame(out, b), frame(out_p, b), args, cfg,
+                            f"batched, sequence {b}")["gap_px"])
+        one = pose_opt.optimize_pose(*args, cfg)
+        exact &= all(silicon_gate.same_bits(o, s) for o, s in zip(
+            (out[0].q[b], out[0].t[b], *(o[b] for o in out[1:])),
+            (one[0].q, one[0].t, *one[1:])))
+    require(pg.LAUNCHES[POSE] == 1 + N_SEQ, f"{POSE}: "
+            f"{pg.LAUNCHES[POSE]} launches for one batch and {N_SEQ} frames")
+    log(f"{POSE} batched, {N_SEQ} x {n} rows: one launch, projection gap "
+        f"to plain per sequence {[round(g, 6) for g in gaps]} px (limit "
+        f"{silicon_gate.POSE_GAP_PX}), bit for bit the single launches "
+        f"{exact}")
+    require(exact, f"{POSE}: a batched sequence differs from its single "
+            "launch")
+    forms[f"batched_b{N_SEQ}"] = {
+        "gap_px": max(gaps), "bit_exact": exact,
+        **timed(lambda: batched(cfg),
+                lambda: batched(cfg.replace(use_pallas=False)),
+                f"vmap over {N_SEQ} x {n} rows", None, n, N_SEQ)}
+    return forms
+
+
 def main() -> int:
     try:
         import torch
@@ -1875,6 +2072,9 @@ def main() -> int:
     require(mb["probe"]["A"]["max_err_vs_extract"] <= 1e-4,
             "microbench: probe variant A disagrees with extract_patches")
 
+    # ---- 3d. pose refinement in one launch ---------------------------------
+    pose = pose_phase(dev, label)
+
     # ---- 4. main path on the kernels -------------------------------------------
     cfg = SVOConfig(init_min_disparity=20.0, max_n_kfs=8, loba_n_iter=0)
     cam = synthetic.default_camera(640, 480, device=dev)
@@ -1885,9 +2085,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     gate_launches = dict(pk.LAUNCHES)      # phase 3's gate, dispatch, timing
-    pk.reset_launch_counts()
+    reset_launches()
     run_k = run_sequence(cfg, cam, imgs, poses, dev)
-    launches = dict(pk.LAUNCHES)
+    launches = path_launches()
     log(f"main path [{label}]: stage {run_k['stage']}, tracked frames "
         f"{run_k['n_tracked_frames']}, failures {run_k['n_fail']}, "
         f"keyframes after bootstrap {run_k['n_kf']}, ATE {run_k['ate']:.6f}, "
@@ -1900,6 +2100,7 @@ def main() -> int:
     require(math.isfinite(run_k["ate"]) and run_k["ate"] <= 0.02,
             f"ATE {run_k['ate']} > 0.02")
     require_path_launches(launches, "main")
+    require_pose_per_frame(launches, run_k["n_tracked_frames"], "main")
 
     # ---- 4b. where a tracking frame's time goes (profiled, steady state) --
     warm = fh.FrameHandler(cam, cfg, device=dev)
@@ -1911,13 +2112,13 @@ def main() -> int:
     print(json.dumps({"profile": prof}), flush=True)
 
     # ---- 5. reference run on the plain versions --------------------------------
-    pk.reset_launch_counts()
+    reset_launches()
     run_p = run_sequence(cfg.replace(use_pallas=False), cam, imgs, poses, dev)
     log(f"plain path [{label}]: stage {run_p['stage']}, failures "
         f"{run_p['n_fail']}, keyframes after bootstrap {run_p['n_kf']}, ATE "
         f"{run_p['ate']:.6f}, median {run_p['median_ms']:.2f} ms/frame")
-    require(all(v == 0 for v in pk.LAUNCHES.values()),
-            f"plain run launched kernels: {pk.LAUNCHES}")
+    require(all(v == 0 for v in path_launches().values()),
+            f"plain run launched kernels: {path_launches()}")
     require(run_p["n_fail"] == 0, f"plain run: {run_p['n_fail']} failures")
     require(run_p["est"].shape == run_k["est"].shape,
             "plain and kernel runs tracked different frame counts")
@@ -1932,9 +2133,9 @@ def main() -> int:
     poses_d = make_poses(synthetic, N_ORBIT, 0.02, dev)
     imgs_d = [synthetic.render(tex, cam, p) for p in poses_d]
     torch.cuda.synchronize()
-    pk.reset_launch_counts()
+    reset_launches()
     run_d = run_sequence(cfg_d, cam, imgs_d, poses_d, dev)
-    launches_d = dict(pk.LAUNCHES)
+    launches_d = path_launches()
     log(f"default path [{label}]: {N_ORBIT} frames, stage {run_d['stage']}, "
         f"tracked frames {run_d['n_tracked_frames']}, failures "
         f"{run_d['n_fail']}, keyframes after bootstrap {run_d['n_kf']}, "
@@ -1949,6 +2150,7 @@ def main() -> int:
     require(math.isfinite(run_d["ate"]) and run_d["ate"] <= 0.02,
             f"default path ATE {run_d['ate']} > 0.02")
     require_path_launches(launches_d, "default")
+    require_pose_per_frame(launches_d, run_d["n_tracked_frames"], "default")
     handler_d = run_d.pop("handler")
     ba_prof = profile_call(lambda: handler_d._run_local_ba(handler_d.vo))
     ba_prof["card"] = label
@@ -2004,11 +2206,11 @@ def main() -> int:
             f"path by {d_scan} > {SCAN_TOL}")
 
     # ---- 7. relocalization scenario ------------------------------------------------
-    pk.reset_launch_counts()
+    reset_launches()
     rel = reloc_demo.run(
         device=dev, trace=os.path.join(here, "build", "reloc_trace.jsonl"),
         log=log)
-    launches_r = dict(pk.LAUNCHES)
+    launches_r = path_launches()
     rel["card"] = label
     print(json.dumps({"reloc": rel}), flush=True)
     log(f"reloc [{label}]: entered {rel['reloc_entered_at']} (JAX "
@@ -2026,7 +2228,7 @@ def main() -> int:
     from android_svo_tpu_torch.ops import detect, matcher
     cfg_lm = cfg.replace(poseoptim_method="lm", structureoptim_method="lm")
     run_lm, launches_lm, run_lm_p, dc_lm = run_with_plain(
-        cfg_lm, cam, imgs, poses, dev, pk, "lm")
+        cfg_lm, cam, imgs, poses, dev, "lm")
     per_lm = {k: v / run_lm["n_tracked_frames"]
               for k, v in launches_lm.items()}
     log(f"lm path [{label}]: stage {run_lm['stage']}, tracked frames "
@@ -2044,6 +2246,7 @@ def main() -> int:
     require(math.isfinite(run_lm["ate"]) and run_lm["ate"] <= 0.02,
             f"lm path ATE {run_lm['ate']} > 0.02")
     require_path_launches(launches_lm, "lm")
+    require_pose_per_frame(launches_lm, run_lm["n_tracked_frames"], "lm")
     require(dc_lm <= 5e-3, f"lm path: camera centres differ from the plain "
             f"run by {dc_lm} > 5e-3")
 
@@ -2070,7 +2273,7 @@ def main() -> int:
     matcher.align1d_stack = timed_align1d
     try:
         run_e, launches_e, run_e_p, dc_e = run_with_plain(
-            cfg_e, cam, imgs_e, poses_e, dev, pk, "edgelets")
+            cfg_e, cam, imgs_e, poses_e, dev, "edgelets")
     finally:
         matcher.align1d_stack = align1d
     n_tr = run_e["n_tracked_frames"]
@@ -2110,6 +2313,7 @@ def main() -> int:
             f"edgelet path ATE {run_e['ate']} > {ate_limit}")
     require_path_launches(launches_e, "edgelet",
                           absent=("align_iclk_kernel",))
+    require_pose_per_frame(launches_e, n_tr, "edgelet")
     require(dc_e <= 5e-3, f"edgelet path: camera centres differ from the "
             f"plain run by {dc_e} > 5e-3")
     # the align1d host time of the kernel run alone, per call at the seed
@@ -2251,6 +2455,24 @@ def main() -> int:
                          "bit_exact": p["bit_exact"]}
                      for v, p in probe.items()},
         "card": label})
+    # pose refinement: one launch a tracked frame and a batched step
+    by_path = {"main": launches, "default": launches_d, "reloc": launches_r,
+               "lm": launches_lm, "edgelets": launches_e,
+               "dataset": ds["launches"], "batched": bt["launches"]}
+    tracked = {"main": run_k["n_tracked_frames"],
+               "default": run_d["n_tracked_frames"],
+               "lm": run_lm["n_tracked_frames"], "edgelets": n_tr,
+               "dataset": ds["tracked"]}
+    kernels.append({
+        "name": POSE, "route": "cuda", "source": POSE_SOURCE,
+        "replaces": KERNEL_META[POSE], "launches": launches[POSE],
+        "launches_by_path": {k: v[POSE] for k, v in by_path.items()},
+        "launches_per_frame": {k: by_path[k][POSE] / v
+                               for k, v in tracked.items()},
+        "launches_per_step": {"batched": bt["launches_per_step"][POSE]},
+        **pose["rows912"], "library_ms": None, "library_kernel_ms": None,
+        "card": label,
+        "forms": {k: v for k, v in pose.items() if k != "rows912"}})
     print(json.dumps({"microbench_gather": mb}), flush=True)
     print(json.dumps({"main_path": {
         "card": label, "ate": run_k["ate"], "ate_plain": run_p["ate"],

@@ -1405,3 +1405,177 @@ def test_spans_bracket_the_work_they_launch(card, tmp_path):
     trace = json.loads((tmp_path / "trace.json").read_text())
     cats = {e.get("cat") for e in trace["traceEvents"]}
     assert {"program_span", "kernel"} <= cats
+
+
+# ---------------------------------------------------------------------------
+# pose refinement in one launch (pose_gn_kernel)
+# ---------------------------------------------------------------------------
+
+def _pose_scene(seed, **kw):
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.pose_inputs(seed, **kw)
+
+
+def _pose_cfg(method="gn", n_iter=10, **kw):
+    from android_svo_tpu_torch.config import SVOConfig
+    return SVOConfig(poseoptim_method=method, poseoptim_n_iter=n_iter, **kw)
+
+
+POSE_SCENES = {"typical": {}, "all_valid": {"valid_share": 1.0},
+               "few_valid": {"valid_share": 0.02},
+               "none_valid": {"valid_share": 0.0},
+               "behind": {"behind": 0.2}, "outliers": {"outliers": 0.4},
+               "rows_768": {"n": 768}, "rows_2048": {"n": 2048}}
+
+
+@pytest.mark.parametrize("scene", list(POSE_SCENES))
+@pytest.mark.parametrize("method,n_iter", [("gn", 10), ("gn", 3),
+                                           ("lm", 10), ("lm", 3)])
+def test_pose_kernel_matches_plain(card, scene, method, n_iter):
+    """pose_gn_kernel against the plain version (ATen on the card) at the
+    cells' 912 rows (768 at 640x480, and 2,048, past the default 48 KB of
+    shared memory), two seeds each, with `silicon_gate.compare_pose`'s
+    tolerances (rounding's: only the order of the sums differs): the pose
+    within 0.05 px of projection gap, chi2_init 1e-5 relative, chi2_final
+    1e-3 relative plus 1e-9, cov 1e-2 of its largest entry, inliers equal
+    but for rows within 0.05 px of the threshold, the count the mask's."""
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.ops import pose_gn, silicon_gate
+    cfg = _pose_cfg(method, n_iter)
+    for seed in (1, 2):
+        args = _pose_scene(seed, **POSE_SCENES[scene])
+        pose_gn.reset_launch_counts()
+        k = pose_opt.optimize_pose(*args, cfg)
+        p = pose_opt.optimize_pose(*args, cfg.replace(use_pallas=False))
+        torch.cuda.synchronize()
+        assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
+        T0 = args[0]
+        _, failures = silicon_gate.compare_pose(k, p, args,
+                                                cfg.poseoptim_thresh)
+        assert not failures, failures
+        if scene == "none_valid":
+            assert int(k[2]) == 0 and torch.equal(k[0].q, T0.q)
+
+
+def test_pose_kernel_batched_matches_single_launches(card):
+    """torch.func.vmap over optimize_pose on 11 sequences (focal shared,
+    every other input batched) is ONE launch, and each sequence's outputs
+    equal its own single launch bit for bit: each block sums in an order
+    that does not depend on the batch."""
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import pose_gn
+    cfg = _pose_cfg()
+    scenes = [_pose_scene(10 + s, outliers=0.05 * (s % 4),
+                          behind=0.02 * (s % 3)) for s in range(11)]
+    T0 = SE3(q=torch.stack([s[0].q for s in scenes]),
+             t=torch.stack([s[0].t for s in scenes]) + 0.01)
+    rows = [torch.stack([s[i] for s in scenes]) for i in range(1, 5)]
+    focal = scenes[0][5]
+    pose_gn.reset_launch_counts()
+    out = torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
+        SE3(q=q, t=t), *r, focal, cfg))(T0.q, T0.t, *rows)
+    torch.cuda.synchronize()
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
+    flat = (out[0].q, out[0].t, *out[1:])
+    for b in range(11):
+        single = pose_opt.optimize_pose(SE3(q=T0.q[b], t=T0.t[b]),
+                                        *(r[b] for r in rows), focal, cfg)
+        for o, s in zip(flat, (single[0].q, single[0].t, *single[1:])):
+            assert torch.equal(o[b], s), b
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 12
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_pose_kernel_launches_once_and_reads_nothing_back(card, batched):
+    """One call (a frame, or a vmapped batch of 11) is exactly one launch
+    of pose_gn_kernel, and nothing in it reads the device back: no
+    `aten::item` or `aten::_local_scalar_dense`, no device-to-host copy.
+    With use_pallas off the plain version runs on the card and launches
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import pose_gn
+    cfg = _pose_cfg()
+    if batched:
+        scenes = [_pose_scene(30 + s) for s in range(11)]
+        q = torch.stack([s[0].q for s in scenes])
+        t = torch.stack([s[0].t for s in scenes])
+        rows = [torch.stack([s[i] for s in scenes]) for i in range(1, 5)]
+
+        def call(c):
+            return torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
+                SE3(q=q, t=t), *r, scenes[0][5], c))(q, t, *rows)
+    else:
+        args = _pose_scene(30)
+
+        def call(c):
+            return pose_opt.optimize_pose(*args, c)
+    call(cfg)                                   # warm
+    torch.cuda.synchronize()
+    pose_gn.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call(cfg)
+        torch.cuda.synchronize()
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
+    names = [e.name for e in prof.events()]
+    assert "aten::item" not in names
+    assert "aten::_local_scalar_dense" not in names
+    assert not [n for n in names if "DtoH" in n or "Device -> Host" in n]
+    call(cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
+
+
+def test_pose_kernel_refuses_other_types(card):
+    """On the card the wrapper converts nothing: float64 points or a
+    strided bearing array raise before any launch."""
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.ops import pose_gn
+    T0, p_w, f, level, valid, focal = _pose_scene(40)
+    cfg = _pose_cfg()
+    pose_gn.reset_launch_counts()
+    with pytest.raises(TypeError):
+        pose_opt.optimize_pose(T0, p_w.double(), f, level, valid, focal, cfg)
+    with pytest.raises(TypeError):
+        pose_opt.optimize_pose(T0, p_w, f, level.long(), valid, focal, cfg)
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(T0, p_w, torch.cat([f, f], 1)[:, ::2], level,
+                               valid, focal, cfg)
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 0
+
+
+def test_pose_kernel_once_per_frame_and_per_step(card):
+    """On the tracking path: one pose_gn_kernel launch per tracked frame of
+    the handler, keyframes included, and one per batched step of 11
+    sequences."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.ops import pose_gn
+    from android_svo_tpu_torch.parallel.multi_seq import make_batched_track
+    cam = synthetic.default_camera(320, 240)
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024)
+    imgs = [synthetic.render(tex, cam, synthetic.lookdown_pose(
+        0.05 * i, 0.015 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i,
+                                    0.004 * i))) for i in range(11)]
+    cfg = SVOConfig(init_min_disparity=20.0, loba_n_iter=0)
+    handler = fh.FrameHandler(cam, cfg)
+    for img in (imgs[0], imgs[4]):
+        handler.add_image(img)
+    assert handler.stage == fh.STAGE_DEFAULT_FRAME
+    pose_gn.reset_launch_counts()
+    results = [handler.add_image(img).result for img in imgs[5:10]]
+    torch.cuda.synchronize()
+    assert pipeline.RES_FAILURE not in results
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == len(results)
+    track = make_batched_track(cfg, handler.cam, handler.dims)
+    vo_b = st.stack_states([handler.vo] * 11)
+    pose_gn.reset_launch_counts()
+    track(vo_b, torch.stack([imgs[10]] * 11))
+    torch.cuda.synchronize()
+    assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
