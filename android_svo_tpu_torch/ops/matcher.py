@@ -20,6 +20,7 @@ from android_svo_tpu_torch.ops import interp
 from android_svo_tpu_torch.ops import patch_kernels as pk
 from android_svo_tpu_torch.ops.detect import FTYPE_EDGELET
 from android_svo_tpu_torch.ops.feature_align import patch_gradients
+from android_svo_tpu_torch.utils import profiling
 
 
 def get_warp_matrix_affine(cam, px_ref, f_ref, depth_ref, T_cur_ref: SE3,
@@ -102,14 +103,15 @@ def _zmssd_accept(cur_stack, search_level, ref_patch, uv_out, ok,
                   cfg: SVOConfig, use_pallas):
     """Appearance gate on a converged direct match (ZMSSD threshold and the
     population-std information floor)."""
-    n, p, _ = ref_patch.shape
-    area = p * p
-    cur = pk.sample_patches(cur_stack, search_level, uv_out, p // 2,
-                            valid=ok, use_pallas=use_pallas)
-    cur = cur.reshape(n, area)
-    score = zmssd(ref_patch.reshape(n, area), cur[:, None, :])[:, 0]
-    textured = cur.std(dim=-1, correction=0) >= cfg.match_min_patch_std
-    return ok & textured & (score < cfg.zmssd_threshold_factor * area)
+    with profiling.span("zmssd_accept"):
+        n, p, _ = ref_patch.shape
+        area = p * p
+        cur = pk.sample_patches(cur_stack, search_level, uv_out, p // 2,
+                                valid=ok, use_pallas=use_pallas)
+        cur = cur.reshape(n, area)
+        score = zmssd(ref_patch.reshape(n, area), cur[:, None, :])[:, 0]
+        textured = cur.std(dim=-1, correction=0) >= cfg.match_min_patch_std
+        return ok & textured & (score < cfg.zmssd_threshold_factor * area)
 
 
 def align1d_stack(stack, lvl, ref_patch, ref_dx, ref_dy, direction,
@@ -119,41 +121,44 @@ def align1d_stack(stack, lvl, ref_patch, ref_dx, ref_dy, direction,
     mean-brightness term, on the stack at per-feature levels.  Every
     iteration samples the current patches with `sample_patches` (valid =
     the features still inside the level's margin).  Returns (uv, converged,
-    mean)."""
-    n, p, _ = ref_patch.shape
-    area = p * p
-    half = p // 2
-    dtype = init_uv.dtype
-    T = ref_patch.reshape(n, area)
-    gdir = (direction[:, 0:1] * ref_dx.reshape(n, area)
-            + direction[:, 1:2] * ref_dy.reshape(n, area))
-    J = torch.stack([gdir, torch.ones_like(gdir)], dim=-1)
-    H = torch.einsum("nai,naj->nij", J, J) + 1e-6 * torch.eye(
-        2, dtype=dtype, device=init_uv.device)
-    Hinv = inv_spd(H)
-    lvl = torch.clamp(lvl.to(torch.int32), 0, stack.shape[0] - 1)
-    wl = (w >> lvl).to(dtype)
-    hl = (h >> lvl).to(dtype)
-    m = half + 1.0
+    mean).  Spanned as `align1d`; its iterations add to the counter
+    `align1d_iters`."""
+    with profiling.span("align1d"):
+        profiling.count("align1d_iters", n_iter)
+        n, p, _ = ref_patch.shape
+        area = p * p
+        half = p // 2
+        dtype = init_uv.dtype
+        T = ref_patch.reshape(n, area)
+        gdir = (direction[:, 0:1] * ref_dx.reshape(n, area)
+                + direction[:, 1:2] * ref_dy.reshape(n, area))
+        J = torch.stack([gdir, torch.ones_like(gdir)], dim=-1)
+        H = torch.einsum("nai,naj->nij", J, J) + 1e-6 * torch.eye(
+            2, dtype=dtype, device=init_uv.device)
+        Hinv = inv_spd(H)
+        lvl = torch.clamp(lvl.to(torch.int32), 0, stack.shape[0] - 1)
+        wl = (w >> lvl).to(dtype)
+        hl = (h >> lvl).to(dtype)
+        m = half + 1.0
 
-    def inb(uv):
-        return ((uv[..., 0] >= m) & (uv[..., 0] < wl - 1 - m)
-                & (uv[..., 1] >= m) & (uv[..., 1] < hl - 1 - m))
+        def inb(uv):
+            return ((uv[..., 0] >= m) & (uv[..., 0] < wl - 1 - m)
+                    & (uv[..., 1] >= m) & (uv[..., 1] < hl - 1 - m))
 
-    uv = init_uv
-    mean = torch.zeros((n,), dtype=dtype, device=init_uv.device)
-    for _ in range(n_iter):
+        uv = init_uv
+        mean = torch.zeros((n,), dtype=dtype, device=init_uv.device)
+        for _ in range(n_iter):
+            ok = valid & inb(uv)
+            cur = pk.sample_patches(stack, lvl, uv, half, valid=ok,
+                                    use_pallas=use_pallas).reshape(n, area)
+            r = cur - T + mean[:, None]
+            g = torch.einsum("nai,na->ni", J, r)
+            upd = torch.einsum("nij,nj->ni", Hinv, g)
+            uv = torch.where(ok[:, None], uv - upd[:, 0:1] * direction, uv)
+            mean = torch.where(ok, mean - upd[:, 1], mean)
         ok = valid & inb(uv)
-        cur = pk.sample_patches(stack, lvl, uv, half, valid=ok,
-                                use_pallas=use_pallas).reshape(n, area)
-        r = cur - T + mean[:, None]
-        g = torch.einsum("nai,na->ni", J, r)
-        upd = torch.einsum("nij,nj->ni", Hinv, g)
-        uv = torch.where(ok[:, None], uv - upd[:, 0:1] * direction, uv)
-        mean = torch.where(ok, mean - upd[:, 1], mean)
-    ok = valid & inb(uv)
-    drift = torch.linalg.norm(uv - init_uv, dim=-1)
-    return uv, ok & (drift < p), mean
+        drift = torch.linalg.norm(uv - init_uv, dim=-1)
+        return uv, ok & (drift < p), mean
 
 
 def compute_warp_batch(kf_stack, kf_idx, cam, px_ref, f_ref, depth_ref,

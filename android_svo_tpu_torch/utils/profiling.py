@@ -22,6 +22,11 @@ number).  The spans the program opens:
                                keyframe, result, bootstrap, reloc
   patch.<function>             one patch-function call, around the body that
                                launches its kernel (`ops/patch_kernels.py`)
+  align1d, zmssd_accept        the 1D alignment loop (`align1d_stack`) and
+                               the separate appearance gate of a routed
+                               match (`_zmssd_accept`) in `ops/matcher.py`:
+                               with edgelets or `epi_search_1d`, inside
+                               `reproject` and `depth_filter`
   bootstrap                    the handler's first and second frame and the
                                map built from them
   build.cuda_kernels, build.native_feeder
@@ -29,8 +34,9 @@ number).  The spans the program opens:
                                compile), the feeder's `make`
 
 `count(name)` adds to the installed monitor's `counters`: `host_reads`
-(every read through `host_read`) and `align_iters` (sparse alignment's
-Gauss-Newton iterations); `unit_counts` keeps each unit's share.  Counters
+(every read through `host_read`), `align_iters` (sparse alignment's
+Gauss-Newton iterations) and `align1d_iters` (the 1D alignment's
+iterations, `n_iter` a call); `unit_counts` keeps each unit's share.  Counters
 count only while a monitor is installed, and the monitor's own reads are
 not among them.
 

@@ -4,6 +4,7 @@ synthetic frames, the stage spans nest under their unit, every blocking
 read of the tracking path is counted, and the spans sit on the profiler's
 clock and in `device_trace`'s Chrome trace."""
 
+import dataclasses
 import json
 import re
 from pathlib import Path
@@ -177,6 +178,88 @@ def test_every_read_of_a_frame_is_counted(tracked):
         assert f["reads"] == f["align"] + READS_BEYOND_ALIGN
         assert mon.unit_counts[f["unit"]] == {"host_reads": f["reads"],
                                               "align_iters": f["iters"]}
+
+
+# edgelets with 1D epipolar alignment; the matching passes and the seed
+# update given iteration counts of their own, so the counter tells them
+# apart
+EDGE_CFG = dataclasses.replace(CFG, edgelet_detection=True,
+                               epi_search_1d=True, align_max_iter=8,
+                               subpix_n_iter=6)
+
+
+@pytest.fixture(scope="module")
+def tracked_edgelets(scene):
+    """Frames 5-7 tracked under `EDGE_CFG` with the recorder on, each
+    frame's reads beside its alignment iterations."""
+    cam, imgs = scene
+    mon = profiling.install()
+    try:
+        handler = fh.FrameHandler(cam, EDGE_CFG, device="cpu")
+        for img in (imgs[0], imgs[4]):
+            handler.add_image(img)
+        assert handler.stage == fh.STAGE_DEFAULT_FRAME
+        frames = []
+        for img in imgs[5:8]:
+            reads0 = mon.counters["host_reads"]
+            res = handler.add_image(img)
+            frames.append(dict(result=res.result, unit=mon.unit,
+                               reads=mon.counters["host_reads"] - reads0,
+                               align=sum(sparse_align.ITERATIONS)))
+    finally:
+        profiling.uninstall()
+    return mon, frames
+
+
+def _unit_spans(spans, unit, name):
+    return [i for i, s in enumerate(spans) if s.unit == unit
+            and s.name == name]
+
+
+def test_align1d_iters_count_the_1d_loop(tracked_edgelets):
+    """Under edgelets and `epi_search_1d` each `align1d` span adds its
+    loop's iterations: `align_max_iter` in the matching passes (one a
+    pass), `subpix_n_iter` in the seed update (one a frame)."""
+    mon, frames = tracked_edgelets
+    spans = mon.spans()
+    for f in frames:
+        assert f["result"] != pipeline.RES_FAILURE
+        calls = _unit_spans(spans, f["unit"], "align1d")
+        stages = ["reproject" if "reproject" in _ancestors(spans, i)
+                  else "depth_filter" for i in calls]
+        assert stages.count("reproject") == 1 + CFG.reproject_n_retries
+        assert stages.count("depth_filter") == 1
+        want = sum(EDGE_CFG.align_max_iter if st_ == "reproject"
+                   else EDGE_CFG.subpix_n_iter for st_ in stages)
+        assert mon.unit_counts[f["unit"]]["align1d_iters"] == want
+
+
+def test_the_1d_spans_nest_in_their_stages(tracked_edgelets):
+    """`align1d` lies inside `reproject` or `depth_filter` and holds one
+    sampler call an iteration; `zmssd_accept` lies inside `reproject`,
+    one a matching pass."""
+    mon, frames = tracked_edgelets
+    spans = mon.spans()
+    for f in frames:
+        for i in _unit_spans(spans, f["unit"], "align1d"):
+            up = _ancestors(spans, i)
+            assert ("reproject" in up) != ("depth_filter" in up)
+            n_iter = (EDGE_CFG.align_max_iter if "reproject" in up
+                      else EDGE_CFG.subpix_n_iter)
+            kids = [s.name for s in spans if s.parent == i]
+            assert kids == ["patch.sample_patches"] * n_iter
+        gates = _unit_spans(spans, f["unit"], "zmssd_accept")
+        assert len(gates) == 1 + CFG.reproject_n_retries
+        assert all("reproject" in _ancestors(spans, i) for i in gates)
+
+
+def test_the_1d_loop_adds_no_read(tracked_edgelets):
+    """An edgelet frame reads what a default frame reads: its alignment
+    iterations, its keyframe decision and its six results."""
+    mon, frames = tracked_edgelets
+    for f in frames:
+        assert f["reads"] == f["align"] + READS_BEYOND_ALIGN
+        assert mon.unit_counts[f["unit"]]["host_reads"] == f["reads"]
 
 
 def test_bootstrap_and_builds_are_set_up_spans(tracked):
