@@ -9,9 +9,9 @@ source's name and bytes and of the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
 
 The launch plumbing every wrapper shares (`ops/patch_kernels.py`,
-`ops/gather_probe.py`, `ops/pose_gn.py`) is here too: `check` and
-`contiguous` raise on an input the kernel does not take (the wrappers
-convert nothing), `stream` is the current raw stream, and `launch` calls a
+`ops/gather_probe.py`, `ops/pose_gn.py`, `ops/sparse_align_gn.py`) is here
+too: `check`, `contiguous` and `frame_contiguous` test an input against
+what the kernel takes (the wrappers convert nothing), `stream` is the current raw stream, and `launch` calls a
 launcher, raises on its cudaError_t and adds one to the wrapper module's
 launch count.  So is the dispatch every custom op shares
 (`ops/patch_kernels.py`, `core/pose_opt.py`): `cfg_use_pallas` and
@@ -65,6 +65,9 @@ _SIGNATURES = {
     "launch_pose_gn": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL,
                        _P, _LL, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P],
+    "launch_sparse_align": [_P, _LL, _LL, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                            _I, _F, _I, _P, _P, _P, _P, _P, _P],
 }
 # queries a source may define beside its launchers (each returns a
 # cudaError_t): the ICLK layout and its residency on the card
@@ -218,6 +221,18 @@ def check(t, name: str, dtype, shape, device: int) -> None:
                          f"{tuple(t.shape)}")
     raise ValueError(f"{name} is on {t.device}, the kernel's other inputs "
                      f"on CUDA device {device}")
+
+
+def frame_contiguous(t: torch.Tensor, lead: int) -> bool:
+    """Whether t is contiguous after its first `lead` dimensions (a
+    dimension of size 1 may have any stride)."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[lead:]),
+                            reversed(t.stride()[lead:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
 
 
 def contiguous(t, name: str) -> None:

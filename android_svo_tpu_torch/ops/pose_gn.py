@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from android_svo_tpu_torch.ops.cuda_build import check, launch, stream
+from android_svo_tpu_torch.ops.cuda_build import (check, frame_contiguous,
+                                                  launch, stream)
 
 LAUNCHES = {"pose_gn_kernel": 0}
 
@@ -42,18 +43,6 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _frame_contiguous(t: torch.Tensor, lead: int) -> bool:
-    """Whether t is contiguous after its first `lead` dimensions (a
-    dimension of size 1 may have any stride)."""
-    expect = 1
-    for size, stride in zip(reversed(t.shape[lead:]),
-                            reversed(t.stride()[lead:])):
-        if size != 1 and stride != expect:
-            return False
-        expect *= size
-    return True
-
-
 def _launch(args, n_iter: int, thresh: float, lm: bool, batch: int | None):
     """Checks, the output allocations and the one launch.  `args` are the
     seven operands (`_OPERANDS`) of one frame, or, with `batch`, each with a
@@ -67,7 +56,7 @@ def _launch(args, n_iter: int, thresh: float, lm: bool, batch: int | None):
     for t, (name, shape, dtype) in zip(args, _OPERANDS):
         shape = tuple(n if s == "n" else s for s in shape)
         check(t, name, dtype, lead + shape, dev)
-        if not _frame_contiguous(t, len(lead)):
+        if not frame_contiguous(t, len(lead)):
             raise ValueError(f"{name} must be contiguous within a frame")
         packed += [t.data_ptr(), t.stride()[0] if lead else 0]
     device = args[2].device
@@ -102,6 +91,6 @@ def pose_gn_batched(q, t, p_w, f_meas, level, valid, focal, n_iter: int,
     (one of stride 0 is read once for all); one launch of B blocks.  An
     operand not contiguous within a frame (a vmap rule's moved argument) is
     made so."""
-    args = tuple(a if _frame_contiguous(a, 1) else a.contiguous()
+    args = tuple(a if frame_contiguous(a, 1) else a.contiguous()
                  for a in (q, t, p_w, f_meas, level, valid, focal))
     return _launch(args, n_iter, thresh, lm, p_w.shape[0])

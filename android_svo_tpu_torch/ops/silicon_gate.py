@@ -11,8 +11,10 @@ version on the same inputs and returns the deviations and the failures.
 same for the batched forms (B frames, one launch per call), which must also
 equal the B single launches bit for bit.  `pose_inputs`,
 `projection_gap_px` and `compare_pose` hold `pose_gn_kernel` against
-`core/pose_opt.py::optimize_pose_plain` on the same inputs.  Used by
-`chip_smoke.py` and the card tests.
+`core/pose_opt.py::optimize_pose_plain` on the same inputs; `align_inputs`,
+`compare_align` and `plain_align_trace` hold `sparse_align_kernel` against
+the plain loop of `ops/sparse_align.py`.  Used by `chip_smoke.py` and the
+card tests.
 """
 
 from __future__ import annotations
@@ -474,3 +476,168 @@ def compare_pose(k, p, args, thresh: float):
             failures.append(f"{int(far.sum())} inlier flips away from the "
                             "threshold")
     return detail, failures
+
+
+# ---------------------------------------------------------------------------
+# sparse image alignment: sparse_align_kernel against the plain loop
+# ---------------------------------------------------------------------------
+
+# the cameras the loop projects through: EuRoC cam0 (752x480, radtan; the
+# cells' 912 grid rows), TUM fr3 (640x480 without distortion; 768 rows) and
+# an ATAN (FOV) camera at 752x480
+ALIGN_CAMERAS = {
+    "radtan": (752, 480, (458.654, 457.296, 367.215, 248.375),
+               {"k1": -0.28340811, "k2": 0.07395907, "p1": 0.00019359,
+                "p2": 1.76187114e-05}),
+    "pinhole": (640, 480, (535.4, 539.2, 320.1, 247.6), {}),
+    "atan": (752, 480, (420.0, 420.0, 375.5, 239.5), {"s": 0.9}),
+}
+ALIGN_ROWS = {"radtan": 912, "pinhole": 768, "atan": 912}
+ALIGN_GAP_PX = 0.05        # pose tolerance, px of projection gap at level 0
+ALIGN_CHI2_RTOL = 1e-4     # final chi2, relative
+
+
+def align_camera(kind: str, device="cuda"):
+    from android_svo_tpu_torch.geometry.camera import (ATANCamera,
+                                                       PinholeCamera)
+    w, h, (fx, fy, cx, cy), extra = ALIGN_CAMERAS[kind]
+    if kind == "atan":
+        return ATANCamera.create(w, h, fx, fy, cx, cy, extra["s"],
+                                 device=device)
+    return PinholeCamera.create(w, h, fx, fy, cx, cy, **extra, device=device)
+
+
+def align_inputs(seed: int, camera: str = "radtan", n: int | None = None,
+                 valid_share: float = 0.9, behind: float = 0.0,
+                 margin: float = 0.0, device="cuda"):
+    """One frame's alignment problem: a textured plane 3 units ahead seen
+    through `camera` from a reference pose and from a pose a few pixels of
+    motion on (0.5-2 cm closer, up to 3 cm aside, a few mrad of rotation),
+    both rendered and made into 5-level stacks; n reference pixels (the
+    camera's grid rows by default) with their true depths, a share of them
+    marked invalid, a share `behind` of them behind the camera (a negative
+    depth) and a share `margin` of them within 40 px of the image's left or
+    right border (about the in-bounds margin at the coarse levels).  Returns
+    sparse_img_align's inputs but the config: (ref_stack, cur_stack, cam,
+    T_init (identity), ref_px, ref_f, ref_depth, valid)."""
+    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops.pyramid import build_stack
+    g = torch.Generator().manual_seed(seed)
+    cam = align_camera(camera, device)
+    n = ALIGN_ROWS[camera] if n is None else n
+    w, h = cam.width, cam.height
+    tex = synthetic.make_texture(g, 1024, device=device)
+    u = torch.rand(8, generator=g)
+    x0, y0 = float(u[0] - 0.5) * 0.4, float(u[1] - 0.5) * 0.4
+    rot0 = tuple(float(r) for r in (torch.rand(3, generator=g) - 0.5) * 0.04)
+    T_ref = synthetic.lookdown_pose(x0, y0, -3.0, rot0, device=device)
+    drot = (torch.rand(3, generator=g) - 0.5) * 0.008
+    T_cur = synthetic.lookdown_pose(
+        x0 + float(u[2] - 0.5) * 0.06, y0 + float(u[3] - 0.5) * 0.06,
+        -3.0 + 0.005 + float(u[4]) * 0.015,
+        tuple(r + float(d) for r, d in zip(rot0, drot)), device=device)
+    stacks = [build_stack(synthetic.render(tex, cam, T), 5)
+              for T in (T_ref, T_cur)]
+    px = torch.rand(n, 2, generator=g) * torch.tensor([w - 1.0, h - 1.0])
+    edge = torch.rand(n, generator=g) < margin
+    side = torch.rand(n, generator=g) < 0.5
+    near = torch.rand(n, generator=g) * 40.0
+    px[:, 0] = torch.where(edge, torch.where(side, near, w - 1.0 - near),
+                           px[:, 0])
+    px = px.to(device)
+    f = cam.cam2world(px)
+    depth = synthetic.true_depth(cam, T_ref, px)
+    back = (torch.rand(n, generator=g) < behind).to(device)
+    depth = torch.where(back, -depth, depth)
+    valid = (torch.rand(n, generator=g) < valid_share).to(device)
+    T0 = SE3.identity(device=device)
+    return (stacks[0], stacks[1], cam, T0, px, f, depth, valid)
+
+
+def stack_align_inputs(scenes: list):
+    """The batched form of several `align_inputs` of one camera: every
+    input stacked on a leading axis, the camera shared."""
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    cam = scenes[0][2]
+    T0 = SE3(q=torch.stack([s[3].q for s in scenes]),
+             t=torch.stack([s[3].t for s in scenes]))
+    rest = [torch.stack([s[i] for s in scenes]) for i in (4, 5, 6, 7)]
+    return (torch.stack([s[0] for s in scenes]),
+            torch.stack([s[1] for s in scenes]), cam, T0, *rest)
+
+
+def align_gap_px(Ta, Tb, args) -> float:
+    """The widest gap (level-0 px) between the projections of the valid
+    reference points in front of both poses."""
+    cam, depth, valid = args[2], args[6], args[7]
+    xyz = args[5] * depth[..., None]
+    a, b = Ta.apply(xyz), Tb.apply(xyz)
+    ok = valid & (depth > 0) & (a[:, 2] > 1e-3) & (b[:, 2] > 1e-3)
+    d = torch.linalg.norm(cam.world2cam(a) - cam.world2cam(b), dim=-1)
+    return float(d[ok].max()) if bool(ok.any()) else 0.0
+
+
+def compare_align(k, p, args):
+    """sparse_img_align's outputs (T, n_tracked, chi2) on the kernel (k)
+    against the plain loop's (p) on the same inputs (`args`, as
+    `align_inputs` gives them).  Only the order of the sums differs, so the
+    tolerances are rounding's:
+      - pose: 0.05 px of projection gap at level 0.  A step whose cost lies
+        within rounding of the best so far can be kept on one side and
+        refused on the other (GN stops at its first refused step), which
+        parts the poses by a fraction of a step near the optimum;
+      - n_tracked: equal (the rows usable at the result);
+      - chi2: 1e-4 relative (the same residuals summed in another order).
+    Returns (the deviations, the failures)."""
+    gap = align_gap_px(k[0], p[0], args)
+    detail = {"gap_px": gap, "n_tracked": (int(k[1]), int(p[1])),
+              "chi2": (float(k[2]), float(p[2]))}
+    failures = []
+    if not gap <= ALIGN_GAP_PX:
+        failures.append(f"pose: projection gap {gap} px > {ALIGN_GAP_PX}")
+    if int(k[1]) != int(p[1]):
+        failures.append(f"n_tracked {detail['n_tracked']}")
+    if not torch.allclose(k[2], p[2], rtol=ALIGN_CHI2_RTOL, atol=0.0):
+        failures.append(f"chi2 {detail['chi2']}")
+    return detail, failures
+
+
+def plain_align_trace(args, cfg, method: str = "gn"):
+    """The plain loop on `args` (one frame, `use_pallas` off) with each
+    iteration's cost at its pose and the best cost so far recorded: returns
+    (outputs, iterations per level, [(level, chi2, best_chi2)]).  A step
+    whose chi2 lies within ALIGN_CHI2_RTOL of the best so far is a tie that
+    rounding may decide either way: the kernel's and the plain loop's
+    iteration counts may part from that level on."""
+    from android_svo_tpu_torch.ops import sparse_align as sa
+    orig = sa._align_step
+    rec = []
+
+    def traced(cur_stack, xyz_ref, ok_ref, patch_ref, J, carry, cam, level,
+               cfg_, lm):
+        fresh = (carry[0], carry[1], carry[0], carry[1],
+                 torch.full_like(carry[4], math.inf), *carry[5:])
+        chi2 = orig(cur_stack, xyz_ref, ok_ref, patch_ref, J, fresh, cam,
+                    level, cfg_, lm)[0][4]
+        rec.append((level, float(chi2), float(carry[4])))
+        return orig(cur_stack, xyz_ref, ok_ref, patch_ref, J, carry, cam,
+                    level, cfg_, lm)
+
+    sa._align_step = traced
+    try:
+        out = sa.sparse_img_align(*args, cfg.replace(use_pallas=False),
+                                  method=method)
+    finally:
+        sa._align_step = orig
+    return out, list(sa.ITERATIONS), rec
+
+
+def first_tie_level(rec, levels) -> int:
+    """The index (into `levels`, coarse to fine) of the first level whose
+    plain loop met a tie (`plain_align_trace`), or len(levels)."""
+    for level, chi2, best in rec:
+        if math.isfinite(best) and abs(chi2 - best) <= (
+                ALIGN_CHI2_RTOL * abs(best)):
+            return list(levels).index(level)
+    return len(levels)

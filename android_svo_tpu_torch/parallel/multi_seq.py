@@ -10,8 +10,10 @@ host".  JAX writes it as `vmap(track_frame)`; here the step's stages
 of the single step become one read each for the whole batch:
 
   * sparse alignment's loop runs until every element has stopped, a
-    stopped element keeping its whole carry (JAX's batched while-loop);
-    one `any(active)` read per iteration;
+    stopped element keeping its whole carry (JAX's batched while-loop):
+    on the card one launch of `sparse_align_kernel` for the batch, each
+    block stopping where its own loop stops, with no read; on the CPU one
+    `any(active)` read per iteration;
   * keyframe insertion runs for the batch when any element needs one
     (one `any(make_kf)` read) and commits only where that element's own
     decision holds (JAX's select of the batched `lax.cond`), writing one

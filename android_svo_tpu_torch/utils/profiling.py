@@ -18,7 +18,8 @@ number).  The spans the program opens:
                                the handler's tracking call and its local BA
                                dispatch (`core/frame_handler.py`)
   host_read.<site>             one blocking device-to-host read
-                               (`host_read`): align_stop, align_active,
+                               (`host_read`): align_stop, align_active
+                               (the plain alignment loop, on the CPU),
                                keyframe, result, bootstrap, reloc
   patch.<function>             one patch-function call, around the body that
                                launches its kernel (`ops/patch_kernels.py`)
@@ -34,9 +35,11 @@ number).  The spans the program opens:
                                compile), the feeder's `make`
 
 `count(name)` adds to the installed monitor's `counters`: `host_reads`
-(every read through `host_read`), `align_iters` (sparse alignment's
-Gauss-Newton iterations) and `align1d_iters` (the 1D alignment's
-iterations, `n_iter` a call); `unit_counts` keeps each unit's share.  Counters
+(every read through `host_read`), `align_iters` (the plain sparse
+alignment loop's Gauss-Newton iterations), `align_launches` (launches of
+`sparse_align_kernel`, which runs the loop on the card: one a frame or a
+batched step) and `align1d_iters` (the 1D alignment's iterations, `n_iter`
+a call); `unit_counts` keeps each unit's share.  Counters
 count only while a monitor is installed, and the monitor's own reads are
 not among them.
 

@@ -56,6 +56,20 @@ every phase passed):
                7 ATen ops for a frame, no read of the card back; the
                wrapper's time, the kernel's device time, the plain
                version's and the bound (pose_bound), single and batched.
+  3e. align  — sparse_align_kernel (sparse_img_align on the card) against
+               the plain loop (the same call with use_pallas=False) on the
+               same inputs, with the card tests' tolerances
+               (silicon_gate.compare_align: projection gap <= 0.05 px at
+               level 0, n_tracked equal, chi2 within 1e-4), at EuRoC's
+               radtan camera (752x480, 912 rows) and TUM fr3's
+               distortion-free one (640x480, 768 rows), GN and LM, and
+               batched on 11 frames of 912 rows (each frame within those
+               tolerances of its plain loop, bit for bit its single launch,
+               iteration counts included); one kernel launch per call
+               beside the set-up's samplers, no read of the card back; the
+               call's time, the kernel's device time with the iterations
+               it ran (read from the device), the plain loop's time and
+               the bound (align_bound), single and batched.
   4. main    — FrameHandler at 640x480, SVOConfig(init_min_disparity=20,
                max_n_kfs=8, loba_n_iter=0), 40 frames of the bench orbit
                rendered on the card: bootstrap, tracking, keyframes.  Every
@@ -127,8 +141,9 @@ every phase passed):
                failures, ATE <= 0.02 per sequence, a step where some but
                not all take a keyframe; the first 10 frames rerun as each
                sequence's single step (camera centres within 1e-4, equal
-               result codes, each kernel launched per step as the slowest
-               sequence's single step would, per alignment level); the
+               result codes, each kernel launched per step as a single step
+               is, each sequence's alignment iterations per level its single
+               step's); the
                batched plain run (no launch, centres within 5e-3); the
                step's time at B=11 and B=1, the single step's, a profile
                of 3 steps; (c) make_sharded_ba on the card, 2 gloo ranks
@@ -160,13 +175,15 @@ every phase passed):
 Each path (3c, 4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
 plain run, 11) runs with the launch counts set to 0 just before it and read
 just after; on a tracking path those of the patch kernels and of
-pose_gn_kernel, all 0 on each plain run.  The tracking paths (4, 6, 7, 8a,
-8b, 9, 10b) launch every patch kernel but dump_windows_kernel, which only
-the public dump_windows runs (8b also not align_iclk_kernel); there its
-count must stay 0.  They launch pose_gn_kernel once a tracked frame (4, 6,
-8a, 8b, 9) and once a batched step (10b; 7, which relocalizes, at least
-once).  Prints a `{"kernels": [...]}` line (all seven kernels; pose_gn's
-with its 768-row and batched forms and its launches per frame and step)
+pose_gn_kernel and sparse_align_kernel, all 0 on each plain run.  The
+tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every patch kernel but
+dump_windows_kernel, which only the public dump_windows runs (8b also not
+align_iclk_kernel); there its count must stay 0.  They launch
+pose_gn_kernel and sparse_align_kernel once a tracked frame (4, 6, 8a, 8b,
+9) and once a batched step (10b; 7, which relocalizes, at least once).
+Prints a `{"kernels": [...]}` line (all eight kernels; pose_gn's and
+sparse_align's with their 768-row and batched forms and their launches per
+frame and step)
 and ends with one JSON line `{"ok": true, "device": {...}}`.
 """
 
@@ -202,6 +219,9 @@ KERNEL_META = {
     "pose_gn_kernel": (
         "none: the JAX package leaves android_svo_tpu/core/pose_opt.py "
         "(optimize_pose) to XLA"),
+    "sparse_align_kernel": (
+        "none: the JAX package leaves android_svo_tpu/ops/sparse_align.py "
+        "(sparse_img_align's while-loop) to XLA"),
 }
 # the README's slice of the port that made each kernel what it is now
 REDESIGNED_IN = {"sample_patches_kernel": "slice 11",
@@ -221,6 +241,7 @@ SOURCE = "android_svo_tpu_torch/csrc/patch_kernels.cu"
 PROBE_SOURCE = "android_svo_tpu_torch/csrc/gather_probe_kernels.cu"
 POSE_SOURCE = "android_svo_tpu_torch/csrc/pose_kernels.cu"
 POSE = "pose_gn_kernel"
+ALIGN = "sparse_align_kernel"
 POSE_ROWS = (912, 768)    # the arena's rows at 752x480 (the cells) and
                           # at 640x480 (phases 4-8)
 N_FRAMES = 40
@@ -270,26 +291,32 @@ def require_path_launches(launches, what, absent=()):
 
 
 def reset_launches():
-    """Set the tracking path's launch counts to 0: the patch kernels' and
-    pose_gn_kernel's."""
+    """Set the tracking path's launch counts to 0: the patch kernels',
+    pose_gn_kernel's and sparse_align_kernel's."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import pose_gn as pg
+    from android_svo_tpu_torch.ops import sparse_align_gn as sg
     pk.reset_launch_counts()
     pg.reset_launch_counts()
+    sg.reset_launch_counts()
 
 
 def path_launches() -> dict:
-    """The tracking path's launch counts: the patch kernels' and
-    pose_gn_kernel's."""
+    """The tracking path's launch counts: the patch kernels',
+    pose_gn_kernel's and sparse_align_kernel's."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import pose_gn as pg
-    return {**pk.LAUNCHES, **pg.LAUNCHES}
+    from android_svo_tpu_torch.ops import sparse_align_gn as sg
+    return {**pk.LAUNCHES, **pg.LAUNCHES, **sg.LAUNCHES}
 
 
 def require_pose_per_frame(launches, n_units, what, unit="tracked frame"):
-    """One pose_gn_kernel launch per tracked frame (or batched step)."""
-    require(launches[POSE] == n_units, f"{POSE} launched {launches[POSE]} "
-            f"times on the {what} path for {n_units} {unit}s")
+    """One pose_gn_kernel and one sparse_align_kernel launch per tracked
+    frame (or batched step)."""
+    for name in (POSE, ALIGN):
+        require(launches[name] == n_units, f"{name} launched "
+                f"{launches[name]} times on the {what} path for {n_units} "
+                f"{unit}s")
 
 
 def log(msg):
@@ -1265,7 +1292,7 @@ def batched_phase(dev, label, workdir):
         vo_b, out = track_b(vo_b, frames_b[k])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        iters_b.append(list(sparse_align.ITERATIONS))
+        iters_b.append(sparse_align.KERNEL_ITERATIONS.tolist())
         after = path_launches()
         per_step.append({n: after[n] - before[n] for n in before})
         outs.append({"t_wc": out["t_wc"].cpu().numpy(),
@@ -1295,7 +1322,7 @@ def batched_phase(dev, label, workdir):
 
     # the single step of each sequence over the first N_SINGLE frames
     track = pipeline.make_track_frame(cfg, cam, dims)
-    single_ms, d_single, single_its = [], 0.0, []
+    single_ms, d_single = [], 0.0
     for b in range(N_SEQ):
         vo = states[b]
         for k in range(N_SINGLE):
@@ -1305,8 +1332,7 @@ def batched_phase(dev, label, workdir):
             vo, o = track(vo, frames_b[k, b])
             torch.cuda.synchronize()
             single_ms.append((time.perf_counter() - t1) * 1e3)
-            its = list(sparse_align.ITERATIONS)
-            single_its.append((k, its))
+            its = sparse_align.KERNEL_ITERATIONS.tolist()
             after = path_launches()
             got = {n: after[n] - before[n] for n in before}
             d = float(np.abs(o["t_wc"].cpu().numpy()
@@ -1315,29 +1341,23 @@ def batched_phase(dev, label, workdir):
             require(int(o["result"]) == int(codes[k, b]),
                     f"step {k}, sequence {b}: single result "
                     f"{int(o['result'])} != batched {int(codes[k, b])}")
-            # the batched sampler launches per level what the slowest
-            # member's loop needs, the other kernels what one step does
+            # every kernel launches per batched step what one step does
             for n, cnt in got.items():
-                extra = (sum(iters_b[k]) - sum(its)
-                         if n == "sample_patches_kernel" else 0)
-                require(per_step[k][n] == cnt + extra,
+                require(per_step[k][n] == cnt,
                         f"step {k}: {n} launched {per_step[k][n]} times "
-                        f"batched, sequence {b} alone {cnt} (+{extra})")
+                        f"batched, sequence {b} alone {cnt}")
                 require(per_step[k][n] < N_SEQ * max(cnt, 1),
                         f"step {k}: {n} launched B times as often")
-    # the batched loop runs, per level, as long as its slowest element's
-    # own loop: one sampler launch per iteration for the whole batch
-    for k in range(N_SINGLE):
-        slowest = [max(col) for col in zip(*(its for j, its in single_its
-                                             if j == k))]
-        require(iters_b[k] == slowest, f"step {k}: the batched loop ran "
-                f"{iters_b[k]} iterations per level, its slowest sequence "
-                f"alone {slowest}")
+            # each block of the batched alignment stops where the
+            # sequence's own loop stops
+            require(iters_b[k][b] == its, f"step {k}, sequence {b}: the "
+                    f"batched alignment ran {iters_b[k][b]} iterations per "
+                    f"level, the single step {its}")
     med_s = statistics.median(single_ms)
     log(f"batched vs single steps [{label}]: first {N_SINGLE} frames of "
         f"every sequence, camera centres max |d| {d_single:.3e} (limit "
-        f"1e-4), result codes equal, alignment iterations per level those "
-        f"of the slowest sequence alone; median single step {med_s:.2f} ms "
+        f"1e-4), result codes equal, alignment iterations per level each "
+        f"sequence's own; median single step {med_s:.2f} ms "
         f"({1e3 / med_s:.2f} sequence-frames/s)")
     require(d_single <= 1e-4, f"batched vs single centres {d_single} > 1e-4")
 
@@ -1820,6 +1840,136 @@ def pose_phase(dev, label):
     return forms
 
 
+def align_bound(n: int, n_iter: int, batch: int = 1, n_levels: int = 3,
+                area: int = 16):
+    """Least time of sparse_align_kernel on `batch` frames of n rows that
+    ran n_iter iterations in all (summed over the frames): the bytes it
+    must move (the reference
+    side once a level: a flag and the patch, gx and gy a row, 1 + 12 area
+    bytes; the points once, 12 a row; the current level planes at most
+    once, taken as the 4x4 taps of every row, 4 area bytes a row a level;
+    40 written) at the HBM's rate, or its fp32 operations at the fp32
+    peak: a row costs ~60 in the transform and projection and ~85 a pixel
+    (the bilinear taps, J from gx and gy, 21 + 6 products and chi2) an
+    iteration.  The kernel is bound by neither: by the latency of its
+    serial iterations."""
+    bytes_moved = batch * (n * (12 + n_levels * (1 + 16 * area)) + 40)
+    flops = n * n_iter * (60 + 85 * area)
+    return bound(bytes_moved, flops)
+
+
+def align_phase(dev, label):
+    """Phase 3e: sparse_align_kernel (sparse_img_align on the card) against
+    the plain loop (the same call with use_pallas=False: ATen on the card,
+    a host read an iteration) on the same inputs, with the card tests'
+    tolerances (`silicon_gate.compare_align`), at the cells' cameras and
+    rows (radtan at 752x480, 912 rows; no distortion at 640x480, 768), GN
+    and LM, and batched on 11 frames of 912 rows (each within the
+    tolerances of its plain loop and bit for bit its single launch,
+    iteration counts included).  Each call is the set-up's sampler
+    launches and one launch of the kernel, and reads nothing back; the
+    ATen ops and device activities one call dispatches; the call's time,
+    the kernel's device time, the plain loop's time, the iterations the
+    kernel ran (read on the device after the call) and the bound.  Returns
+    the numbers of each form (`rows912`, `rows768`, `batched_b11`)."""
+    import torch
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align_gn as sg
+    from android_svo_tpu_torch.utils.profiling import device_ms
+
+    def checked(k, p, args, what):
+        detail, failures = silicon_gate.compare_align(k, p, args)
+        require(not failures, f"{ALIGN} ({what}) vs plain: {failures}")
+        return detail
+
+    def timed(fn, plain, what, n, batch=1):
+        fn()
+        torch.cuda.synchronize()
+        its = sparse_align.KERNEL_ITERATIONS.tolist()
+        n_iter = sum(its) if batch == 1 else sum(map(sum, its))
+        n_ops, n_dev = profiled_dispatch(fn, sg.LAUNCHES, ALIGN, what)
+        reads = pose_host_reads(fn)
+        require(not reads, f"{ALIGN} ({what}) reads the card back: {reads}")
+        b_ms, b_by, b_bytes, b_flops = align_bound(n, n_iter, batch)
+        rec = {"ms": time_ms(fn, iters=20),
+               "kernel_ms": device_ms(fn, ALIGN),
+               "plain_ms": time_ms(plain, iters=3, warmup=1),
+               "iterations": its, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_bytes": b_bytes, "bound_flops": b_flops,
+               "host_ops_per_call": n_ops,
+               "device_activities_per_call": n_dev}
+        log(f"time {ALIGN} ({what}): call {rec['ms']:.4f} ms, kernel "
+            f"{rec['kernel_ms']} ms on the device for {n_iter} iterations "
+            f"{its}, plain loop {rec['plain_ms']:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {n_ops} ATen ops and {n_dev} device "
+            f"activities a call (the set-up's included), no host read "
+            f"[{label}]")
+        return rec
+
+    forms = {}
+    for camera in ("radtan", "pinhole"):
+        n = silicon_gate.ALIGN_ROWS[camera]
+        for method in ("gn", "lm"):
+            cfg = SVOConfig()
+            args = silicon_gate.align_inputs(1, camera, device=dev)
+            sg.reset_launch_counts()
+            k = sparse_align.sparse_img_align(*args, cfg, method=method)
+            p = sparse_align.sparse_img_align(
+                *args, cfg.replace(use_pallas=False), method=method)
+            torch.cuda.synchronize()
+            require(sg.LAUNCHES[ALIGN] == 1, f"{ALIGN} ({n} rows, {method}):"
+                    f" {sg.LAUNCHES[ALIGN]} launches for a kernel call and "
+                    "a plain one")
+            detail = checked(k, p, args, f"{n} rows, {method}")
+            log(f"{ALIGN} vs plain, {camera}, {n} rows, {method}: "
+                + json.dumps(detail))
+            if method == "gn":
+                forms[f"rows{n}"] = {"gap_px": detail["gap_px"], **timed(
+                    lambda: sparse_align.sparse_img_align(*args, cfg),
+                    lambda: sparse_align.sparse_img_align(
+                        *args, cfg.replace(use_pallas=False)),
+                    f"{camera}, {n} rows", n)}
+
+    # 11 frames of 912 rows in one launch, the camera shared
+    n = silicon_gate.ALIGN_ROWS["radtan"]
+    cfg = SVOConfig()
+    scenes = [silicon_gate.align_inputs(10 + s, "radtan", device=dev,
+                                        behind=0.02 * (s % 3),
+                                        margin=0.1 * (s % 2))
+              for s in range(N_SEQ)]
+    batch = silicon_gate.stack_align_inputs(scenes)
+    sg.reset_launch_counts()
+    T, n_tr, chi2 = sparse_align.sparse_img_align(*batch, cfg, batched=True)
+    its_b = sparse_align.KERNEL_ITERATIONS.tolist()
+    require(sg.LAUNCHES[ALIGN] == 1, f"{ALIGN}: {sg.LAUNCHES[ALIGN]} "
+            f"launches for a batched call on {N_SEQ} frames")
+    gaps, exact = [], True
+    for b, sc in enumerate(scenes):
+        one = sparse_align.sparse_img_align(*sc, cfg)
+        exact &= (all(silicon_gate.same_bits(o, w) for o, w in zip(
+            (T.q[b], T.t[b], n_tr[b], chi2[b]),
+            (one[0].q, one[0].t, one[1], one[2])))
+            and its_b[b] == sparse_align.KERNEL_ITERATIONS.tolist())
+        p = sparse_align.sparse_img_align(*sc, cfg.replace(use_pallas=False))
+        gaps.append(checked(one, p, sc, f"batched, frame {b}")["gap_px"])
+    log(f"{ALIGN} batched, {N_SEQ} x {n} rows: one launch, iterations per "
+        f"frame {its_b}, projection gap to plain per frame "
+        f"{[round(g, 6) for g in gaps]} px (limit "
+        f"{silicon_gate.ALIGN_GAP_PX}), bit for bit the single launches "
+        f"{exact}")
+    require(exact, f"{ALIGN}: a batched frame differs from its single "
+            "launch")
+    forms[f"batched_b{N_SEQ}"] = {
+        "gap_px": max(gaps), "bit_exact": exact,
+        **timed(lambda: sparse_align.sparse_img_align(*batch, cfg,
+                                                      batched=True),
+                lambda: sparse_align.sparse_img_align(
+                    *batch, cfg.replace(use_pallas=False), batched=True),
+                f"batched, {N_SEQ} x {n} rows", n, N_SEQ)}
+    return forms
+
+
 def main() -> int:
     try:
         import torch
@@ -2074,6 +2224,9 @@ def main() -> int:
 
     # ---- 3d. pose refinement in one launch ---------------------------------
     pose = pose_phase(dev, label)
+
+    # ---- 3e. sparse alignment's loop in one launch -------------------------
+    align = align_phase(dev, label)
 
     # ---- 4. main path on the kernels -------------------------------------------
     cfg = SVOConfig(init_min_disparity=20.0, max_n_kfs=8, loba_n_iter=0)
@@ -2473,6 +2626,17 @@ def main() -> int:
         **pose["rows912"], "library_ms": None, "library_kernel_ms": None,
         "card": label,
         "forms": {k: v for k, v in pose.items() if k != "rows912"}})
+    # sparse alignment's loop: one launch a tracked frame and a batched step
+    kernels.append({
+        "name": ALIGN, "route": "cuda", "source": POSE_SOURCE,
+        "replaces": KERNEL_META[ALIGN], "launches": launches[ALIGN],
+        "launches_by_path": {k: v[ALIGN] for k, v in by_path.items()},
+        "launches_per_frame": {k: by_path[k][ALIGN] / v
+                               for k, v in tracked.items()},
+        "launches_per_step": {"batched": bt["launches_per_step"][ALIGN]},
+        **align["rows912"], "library_ms": None, "library_kernel_ms": None,
+        "card": label,
+        "forms": {k: v for k, v in align.items() if k != "rows912"}})
     print(json.dumps({"microbench_gather": mb}), flush=True)
     print(json.dumps({"main_path": {
         "card": label, "ate": run_k["ate"], "ate_plain": run_p["ate"],

@@ -1327,7 +1327,8 @@ SPAN_OF_KERNEL = (("align_iclk_window_kernel", "patch.align_iclk_mxu"),
 
 def test_spans_bracket_the_work_they_launch(card, tmp_path):
     """Five tracked frames, one of them inserting a keyframe, with the
-    recorder on, under `device_trace`: on
+    recorder on, under `device_trace`: sparse alignment is one
+    `align_launches` a frame with no read of its own; on
     the profiler's clock each frame's span holds the launch of every
     device activity (matched to its launch by correlation id), each patch
     kernel is launched inside a span of its patch function, and the
@@ -1380,6 +1381,11 @@ def test_spans_bracket_the_work_they_launch(card, tmp_path):
 
     frames = [s for s in spans if s.name == "tot_time"]
     assert len(frames) == 5
+    # sparse alignment's loop is one launch a frame and reads nothing back
+    assert mon.counters["align_launches"] == 5
+    assert "align_iters" not in mon.counters
+    assert not [s for s in spans if s.name in ("host_read.align_stop",
+                                               "host_read.align_active")]
     for e in work:
         assert inside(launch[e.correlation_id()], "tot_time"), e.name()
     n_patch = 0
@@ -1693,3 +1699,246 @@ def test_align1d_on_the_edgelet_cell_holds_to_the_reference(card):
     assert prog["flip_share"] <= A1D_FLIP_TOL, r
     assert ctl["uv_gap_px"] > A1D_UV_TOL, r
     assert ctl["flip_share"] > A1D_FLIP_TOL, r
+
+
+# ---------------------------------------------------------------------------
+# sparse image alignment's loop in one launch (sparse_align_kernel)
+# ---------------------------------------------------------------------------
+
+def _align_scene(seed, camera="radtan", **kw):
+    from android_svo_tpu_torch.ops import silicon_gate
+    return silicon_gate.align_inputs(seed, camera, **kw)
+
+
+ALIGN_SCENES = {"typical": ({}, {}), "all_valid": ({"valid_share": 1.0}, {}),
+                "few_valid": ({"valid_share": 0.02}, {}),
+                "none_valid": ({"valid_share": 0.0}, {}),
+                "behind": ({"behind": 0.2}, {}),
+                "margin": ({"margin": 0.3}, {}),
+                "n_iter_2": ({}, {"img_align_n_iter": 2}),
+                "first_stop": ({}, {"img_align_eps": 10.0}),
+                "rows_2048": ({"n": 2048}, {}),
+                "half_3": ({}, {"img_align_patch_halfsize": 3})}
+
+
+@pytest.mark.parametrize("scene", list(ALIGN_SCENES))
+@pytest.mark.parametrize("camera", ["radtan", "pinhole", "atan"])
+@pytest.mark.parametrize("method", ["gn", "lm"])
+def test_align_kernel_matches_plain(card, scene, camera, method):
+    """sparse_align_kernel against the plain loop (ATen on the card, one
+    host read an iteration) on the same inputs: EuRoC's radtan camera at
+    912 rows, TUM fr3's distortion-free one at 768, an ATAN camera at 912;
+    two seeds each, with `silicon_gate.compare_align`'s tolerances
+    (rounding's: only the order of the sums differs): the pose within 0.05
+    px of projection gap at level 0, the same n_tracked, chi2 within 1e-4
+    relative.  Each level's iteration count is the plain loop's up to the
+    first level where the plain loop met a tie: a step whose chi2 lies
+    within 1e-4 of the best so far (`plain_align_trace` records each
+    iteration's cost beside the best), which rounding may take or refuse.
+    With no valid row the start comes back unchanged; with a cap of 2 no
+    level runs more than 2 iterations; with eps 10 every level stops at
+    its first.  At 2,048 rows, or with 6x6 patches, the reference rows no
+    longer fit in shared memory and the kernel reads them in place."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align_gn
+    scene_kw, cfg_kw = ALIGN_SCENES[scene]
+    cfg = SVOConfig(**cfg_kw)
+    levels = range(cfg.img_align_max_level, cfg.img_align_min_level - 1, -1)
+    for seed in (1, 2):
+        args = _align_scene(seed, camera, **scene_kw)
+        sparse_align_gn.reset_launch_counts()
+        k = sparse_align.sparse_img_align(*args, cfg, method=method)
+        its = sparse_align.KERNEL_ITERATIONS.tolist()
+        p, its_p, rec = silicon_gate.plain_align_trace(args, cfg, method)
+        torch.cuda.synchronize()
+        assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 1
+        detail, failures = silicon_gate.compare_align(k, p, args)
+        assert not failures, (failures, detail)
+        tie = silicon_gate.first_tie_level(rec, levels)
+        assert its[:tie] == its_p[:tie], (its, its_p, tie)
+        assert all(1 <= i <= cfg.img_align_n_iter for i in its)
+        if scene == "none_valid":
+            assert int(k[1]) == 0
+            assert torch.equal(k[0].q, args[3].q)
+            assert torch.equal(k[0].t, args[3].t)
+        if scene == "first_stop":
+            assert its == [1] * len(levels)
+
+
+def test_align_kernel_batched_matches_single_launches(card):
+    """The batched step's form (11 frames of 912 rows, every input batched
+    but the camera) is ONE launch, and each frame's outputs and iteration
+    counts equal its own single launch bit for bit: each block sums in an
+    order that does not depend on the batch and stops where its own loop
+    stops."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align_gn
+    cfg = SVOConfig()
+    scenes = [_align_scene(10 + s, behind=0.02 * (s % 3),
+                           margin=0.1 * (s % 2)) for s in range(11)]
+    batch = silicon_gate.stack_align_inputs(scenes)
+    sparse_align_gn.reset_launch_counts()
+    T, n_tr, chi2 = sparse_align.sparse_img_align(*batch, cfg, batched=True)
+    its = sparse_align.KERNEL_ITERATIONS.clone()
+    torch.cuda.synchronize()
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 1
+    assert len({tuple(r) for r in its.tolist()}) > 1   # they stop apart
+    for b, sc in enumerate(scenes):
+        T1, n1, c1 = sparse_align.sparse_img_align(*sc, cfg)
+        assert torch.equal(T.q[b], T1.q) and torch.equal(T.t[b], T1.t), b
+        assert torch.equal(n_tr[b], n1) and torch.equal(chi2[b], c1), b
+        assert torch.equal(its[b], sparse_align.KERNEL_ITERATIONS), b
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 12
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_align_kernel_launches_once_and_reads_nothing_back(card, batched):
+    """One call (a frame, or a batch of 11) is exactly one launch of
+    sparse_align_kernel beside the set-up's sampler launch per level, and
+    nothing in it reads the device back: no `aten::item` or
+    `aten::_local_scalar_dense`, no device-to-host copy.  With use_pallas
+    off the plain loop runs on the card and launches neither."""
+    from torch.profiler import ProfilerActivity, profile
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align_gn
+    cfg = SVOConfig()
+    if batched:
+        args = silicon_gate.stack_align_inputs(
+            [_align_scene(30 + s) for s in range(11)])
+    else:
+        args = _align_scene(30)
+
+    def call(c):
+        return sparse_align.sparse_img_align(*args, c, batched=batched)
+
+    call(cfg)                                   # warm
+    torch.cuda.synchronize()
+    sparse_align_gn.reset_launch_counts()
+    pk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call(cfg)
+        torch.cuda.synchronize()
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 1
+    assert pk.LAUNCHES["sample_patches_kernel"] == 3
+    names = [e.name for e in prof.events()]
+    assert "aten::item" not in names
+    assert "aten::_local_scalar_dense" not in names
+    assert not [n for n in names if "DtoH" in n or "Device -> Host" in n]
+    pk.reset_launch_counts()
+    call(cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 1
+    assert pk.LAUNCHES["sample_patches_kernel"] == 0
+
+
+def test_align_kernel_refuses_other_types(card):
+    """On the card the wrapper converts nothing and takes what the kernel
+    takes: float64 points, or a patch half the kernel is not built for,
+    raise before any launch of it."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import sparse_align, sparse_align_gn
+    args = list(_align_scene(40))
+    cfg = SVOConfig()
+    sparse_align_gn.reset_launch_counts()
+    bad = list(args)
+    bad[5], bad[6] = args[5].double(), args[6].double()
+    with pytest.raises(TypeError):
+        sparse_align.sparse_img_align(*bad, cfg)
+    with pytest.raises(ValueError):
+        sparse_align.sparse_img_align(
+            *args, cfg.replace(img_align_patch_halfsize=5))
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 0
+
+
+def test_align_kernel_once_per_frame_and_per_step(card):
+    """On the tracking path: one sparse_align_kernel launch per tracked
+    frame of the handler, keyframes included, and one per batched step of
+    11 sequences; inside the `sparse_img_align` stage no host read and one
+    sampler call per level (the set-up's), with the recorder counting one
+    `align_launches` a unit and no `align_iters`."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.ops import sparse_align_gn
+    from android_svo_tpu_torch.parallel.multi_seq import make_batched_track
+    from android_svo_tpu_torch.utils import profiling
+    cam = synthetic.default_camera(320, 240)
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024)
+    imgs = [synthetic.render(tex, cam, synthetic.lookdown_pose(
+        0.05 * i, 0.015 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i,
+                                    0.004 * i))) for i in range(11)]
+    cfg = SVOConfig(init_min_disparity=20.0, loba_n_iter=0)
+    n_levels = cfg.img_align_max_level - cfg.img_align_min_level + 1
+    handler = fh.FrameHandler(cam, cfg)
+    for img in (imgs[0], imgs[4]):
+        handler.add_image(img)
+    assert handler.stage == fh.STAGE_DEFAULT_FRAME
+    track = make_batched_track(cfg, handler.cam, handler.dims)
+    vo_b = st.stack_states([handler.vo] * 11)
+    sparse_align_gn.reset_launch_counts()
+    mon = profiling.install()
+    try:
+        results = [handler.add_image(img).result for img in imgs[5:10]]
+        track(vo_b, torch.stack([imgs[10]] * 11))
+        torch.cuda.synchronize()
+    finally:
+        profiling.uninstall()
+    assert pipeline.RES_FAILURE not in results
+    assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == len(results) + 1
+    spans = mon.spans()
+    for u in range(mon.unit + 1):
+        assert mon.unit_counts[u].get("align_launches") == 1
+        assert "align_iters" not in mon.unit_counts[u]
+        (stage,) = [i for i, s in enumerate(spans)
+                    if s.unit == u and s.name == "sparse_img_align"]
+        inside = [s.name for s in spans if s.unit == u
+                  and _inside(spans, stage, s)]
+        assert not [n for n in inside if n.startswith("host_read.")]
+        assert inside.count("patch.sample_patches") == n_levels
+
+
+def _inside(spans, i, s):
+    p = s.parent
+    while p >= 0:
+        if p == i:
+            return True
+        p = spans[p].parent
+    return False
+
+
+def test_align_kernel_and_plain_loop_track_the_replay_scene(card):
+    """The replay cell's scene (`euroc_mh01_noloba.replay`), set up and
+    warmed from one seed as the benchmark does, then its first 120 frames
+    tracked with the loop on the kernel and again with the plain loop (the
+    rest of the path on its kernels both times): each trajectory's ATE
+    against the scene's positions is at most 0.02 (PERF.md's limit)."""
+    from android_svo_tpu_torch.ops import sparse_align
+    from svo_bench import cells, check, drivers
+    cell = cells.find_cell("euroc_mh01_noloba.replay")
+    ates = {}
+    for side in ("kernel", "plain"):
+        orig = sparse_align.cfg_use_pallas
+        if side == "plain":
+            sparse_align.cfg_use_pallas = lambda cfg: False
+        driver = drivers.ReplayDriver(cell.config, cell.traffic, 2718281829,
+                                      torch.device("cuda"), 1.0)
+        try:
+            driver.warm()
+            est, gt = [], []
+            for _ in range(120):
+                u = driver.unit(False)
+                assert u["ok"][0]
+                est.append(u["pose"][0][7:10])
+                gt.append(driver.position(u["g"][0]))
+        finally:
+            driver.close()
+            sparse_align.cfg_use_pallas = orig
+        ates[side] = check.pose_numbers(est, gt)["ate_m"]
+    assert all(a <= 0.02 for a in ates.values()), ates
