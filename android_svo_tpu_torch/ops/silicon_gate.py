@@ -13,8 +13,14 @@ equal the B single launches bit for bit.  `pose_inputs`,
 `projection_gap_px` and `compare_pose` hold `pose_gn_kernel` against
 `core/pose_opt.py::optimize_pose_plain` on the same inputs; `align_inputs`,
 `compare_align` and `plain_align_trace` hold `sparse_align_kernel` against
-the plain loop of `ops/sparse_align.py`.  Used by `chip_smoke.py` and the
-card tests.
+the plain loop of `ops/sparse_align.py`.  `path_gate` runs every one of
+these checks at the tracking path's shapes, with each call's dispatch
+(ATen ops, device activities) and reads back; the card tests
+(`tests/test_torch_cuda.py`) and `chip_smoke.py`'s phase 3 both run it, and
+the card tests hold every kernel to these bounds at more shapes.
+`tools/patch_ab.py` and `chip_smoke.py`'s phase 11 take their inputs from
+here.  `pose_bound`, `align_bound` and `probe_bound` give the least time of
+the kernels `svo_bench/reference/bounds.py` leaves out.
 """
 
 from __future__ import annotations
@@ -641,3 +647,448 @@ def first_tie_level(rec, levels) -> int:
                 ALIGN_CHI2_RTOL * abs(best)):
             return list(levels).index(level)
     return len(levels)
+
+
+# ---------------------------------------------------------------------------
+# every kernel at the tracking path's shapes, in one call
+# ---------------------------------------------------------------------------
+
+# the tracking path's gate problems as (n, h, w): 768 rows on 640x480 and on
+# EuRoC cam0's 752x480 (level 0 padded to 768 columns, level 4 47 wide);
+# the batched step's as (B, n, h, w): 11 frames of 768 rows on 752x480
+PATH_SHAPES = {"768_640x480": (768, 480, 640), "768_752x480": (768, 480, 752)}
+BATCHED_PATH_SHAPES = {"11x768_752x480": (11, 768, 480, 752)}
+POSE_ROWS = (912, 768)     # the arena's rows at 752x480 and at 640x480
+PROBE_N = 2048             # the reference probe scripts' feature count
+
+
+# the host's runtime calls that each put one kernel, copy or set on the card
+ENQUEUE_CALLS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync",
+    "cudaMemset"})
+# the host's runtime calls that wait for the card: a read back waits so
+WAIT_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize", "cudaMemcpy"})
+_RANGE = "silicon_gate.call"
+
+
+def _profile_call(fn):
+    """The profiler's events of one call of fn inside a range of its own,
+    the card synchronised after the range, and a test of whether an event
+    lies inside the range."""
+    from torch.profiler import ProfilerActivity, profile
+    from android_svo_tpu_torch.utils import profiling
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with profiling.span(_RANGE):
+            fn()
+        torch.cuda.synchronize()
+
+    def inside(e):
+        p = e.cpu_parent
+        while p is not None and p.name != _RANGE:
+            p = p.cpu_parent
+        return p is not None
+
+    return prof.events(), inside
+
+
+def dispatch_counts(fn) -> tuple:
+    """(ATen ops, device activities) of one call of fn under torch.profiler:
+    the ATen ops fn dispatches itself, counted as
+    `utils/profiling.py::dispatch_counts` counts them (a port custom op,
+    `svo_torch::*`, and a patch function's span, `patch.*`, looked
+    through), and the kernels, copies and sets it puts on the card, counted
+    on the host as the runtime calls that enqueue them (`ENQUEUE_CALLS`).
+    The host's side, because the profiler drops the card's own records of
+    short profiles: on an H100 machine, from about 30 s into a process
+    (busy or idle), a profile of one launch held its runtime call and no
+    device record, not even its range's."""
+    events, _ = _profile_call(fn)
+
+    def own(e):
+        p = e.cpu_parent
+        while p is not None and p.name.startswith(("svo_torch::", "patch.")):
+            p = p.cpu_parent
+        return p is not None and p.name == _RANGE
+
+    return (sum(e.name.startswith("aten::") and own(e) for e in events),
+            sum(e.name in ENQUEUE_CALLS for e in events))
+
+
+def host_reads(fn) -> list:
+    """The names of the events of one profiled call of fn that read the
+    card back or wait for it: a 0-d read (`aten::item`,
+    `aten::_local_scalar_dense`), a device-to-host copy, or, inside the
+    call, a runtime call that waits for the card (`WAIT_CALLS`: a read
+    back waits on its stream; the copy's own device record may be
+    dropped, see `dispatch_counts`)."""
+    events, inside = _profile_call(fn)
+    return sorted({e.name for e in events
+                   if e.name in ("aten::item", "aten::_local_scalar_dense")
+                   or "DtoH" in e.name or "Device -> Host" in e.name
+                   or (e.name in WAIT_CALLS and inside(e))})
+
+
+def dispatch_cases(x: dict) -> dict:
+    """case -> (fn, its ATen-op limit) for one call of every patch-function
+    form on a gate problem; each call must also be exactly one device
+    activity."""
+    from android_svo_tpu_torch.tools import patch_ab
+    calls = {**kernel_calls(x), **patch_ab.extra_calls(x)}
+
+    def form(name):
+        return lambda: calls[name](True)
+
+    return {
+        "sample_4x4": (form("sample_patches_kernel"), 4),
+        "sample_8x8_grad": (lambda: pk.sample_patches(
+            x["stack"], x["lvl"], x["uv"], 4, grad=True), 4),
+        "sample_8x8_align1d": (form("sample_patches_kernel/align1d"), 4),
+        "sample_4x4_ref_grad": (form("sample_patches_kernel/ref_grad"), 4),
+        "window_gated": (form("align_iclk_window_kernel"), 3),
+        "window_ungated": (form("align_iclk_window_kernel/ungated"), 3),
+        "align": (form("align_iclk_kernel"), 3),
+        "scan": (form("epi_scan_kernel"), 3),
+        "scan_path": (form("epi_scan_kernel/path"), 3),
+        "scan_no_steps": (lambda: pk.epi_scan(
+            x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100,
+            h=x["h"], w=x["w"]), 3),
+        "dump": (form("dump_windows_kernel"), 3),
+    }
+
+
+def extra_forms_failures(x: dict, batched: bool = False) -> list:
+    """The two forms the gate's own calls leave out
+    (`tools/patch_ab.py::extra_calls`) against their plain versions with
+    the gate's bounds: the 4x4 gradient form within 0.02 on live slots;
+    the scan at the path's 0.7 px with at least 80% of seeds finite,
+    scores within 2.0, and best_t within 1e-3 but on at most 1% of seeds
+    within one step (1/99): at 0.7 px two neighbouring positions score
+    within rounding of each other, and the plain version rounds the blend
+    apart from the kernel.  Returns the failures."""
+    from android_svo_tpu_torch.tools import patch_ab
+    calls = patch_ab.extra_calls(x, batched=batched)
+    failures = []
+    live = x["valid"].reshape(-1)
+    name = "sample_patches_kernel/ref_grad"
+    for a, b in zip(calls[name](True), calls[name](False)):
+        a, b = (o.reshape(live.numel(), -1)[live] for o in (a, b))
+        d = float((a - b).abs().max())
+        if not d <= 0.02:
+            failures.append(f"{name}: max|d| {d} > 0.02")
+    name = "epi_scan_kernel/path"
+    (tk, sk), (tp, sp) = ([o.reshape(-1) for o in calls[name](up)]
+                          for up in (True, False))
+    fin = torch.isfinite(sk) & torch.isfinite(sp)
+    if int(fin.sum()) < 0.8 * fin.numel():
+        failures.append(f"{name}: only {int(fin.sum())}/{fin.numel()} "
+                        "finite")
+    dt = (tk - tp)[fin].abs()
+    ds = float((sk - sp)[fin].abs().max()) if dt.numel() else 0.0
+    moved = int((dt > 1e-3).sum())
+    if dt.numel() and not (float(dt.max()) <= 1.0 / 99 + 1e-6
+                           and moved <= 0.01 * fin.numel() and ds <= 2.0):
+        failures.append(f"{name}: best_t max|d| {float(dt.max())} "
+                        f"({moved} seeds past 1e-3), score max|d| {ds}")
+    return failures
+
+
+def dispatch_failures(cases: dict) -> list:
+    """Each case -> (fn, ATen-op limit or None) called once, then profiled
+    (`dispatch_counts`): the cases past the limit or not one device
+    activity a call."""
+    failures = []
+    for case, (fn, limit) in cases.items():
+        fn()
+        n_ops, n_dev = dispatch_counts(fn)
+        if n_dev != 1 or (limit is not None and n_ops > limit):
+            failures.append(f"{case}: {n_ops} ATen ops and {n_dev} device "
+                            "activities a call")
+    return failures
+
+
+def batched_extra_failures(frames: list, xb: dict) -> list:
+    """The batched forms beyond `run_batched_gate`'s: the two extra forms
+    against their batched plain versions (`extra_forms_failures`), one
+    launch a batch and each frame bit for bit its single launch; every
+    batched form one device activity a call, the ICLKs at most 3 ATen ops
+    (their output allocations: they read the (B, N) rows in place)."""
+    from android_svo_tpu_torch.tools import patch_ab
+    failures = extra_forms_failures(xb, batched=True)
+    extra = patch_ab.extra_calls(xb, batched=True)
+    for name, fn in extra.items():
+        kernel = kernel_of(name)
+        before = pk.LAUNCHES[kernel]
+        out = fn(True)
+        if pk.LAUNCHES[kernel] - before != 1:
+            failures.append(f"batched {name}: not one launch a batch")
+        out = out if isinstance(out, tuple) else (out,)
+        for b, x in enumerate(frames):
+            one = patch_ab.extra_calls(x)[name](True)
+            one = one if isinstance(one, tuple) else (one,)
+            if not all(same_bits(o[b], s) for o, s in zip(out, one)):
+                failures.append(f"batched {name}: frame {b} differs from "
+                                "its single launch")
+    calls = {**batched_kernel_calls(xb), **extra}
+    cases = {f"batched {name}": (
+        lambda fn=fn: fn(True), 3 if name.startswith("align_iclk") else None)
+        for name, fn in calls.items()}
+    return failures + dispatch_failures(cases)
+
+
+def pose_failures(device="cuda") -> list:
+    """pose_gn_kernel against the plain version (`compare_pose`) at
+    `POSE_ROWS`, GN and LM, one launch a call; one call a frame is one
+    device activity and at most 7 ATen ops, and reads nothing back; a
+    torch.func.vmap over 11 frames of 912 rows is one launch and one
+    device activity, reads nothing back, each frame within `compare_pose`
+    of the vmapped plain version and bit for bit its single launch."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import pose_opt
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import pose_gn as pg
+    kernel = "pose_gn_kernel"
+    failures = []
+    for n in POSE_ROWS:
+        for method in ("gn", "lm"):
+            cfg = SVOConfig(poseoptim_method=method)
+            args = pose_inputs(1, n=n, device=device)
+            pg.reset_launch_counts()
+            k = pose_opt.optimize_pose(*args, cfg)
+            p = pose_opt.optimize_pose(*args, cfg.replace(use_pallas=False))
+            torch.cuda.synchronize()
+            if pg.LAUNCHES[kernel] != 1:
+                failures.append(f"{n} rows, {method}: {pg.LAUNCHES[kernel]}"
+                                " launches for a kernel and a plain call")
+            failures += [f"{n} rows, {method}: {f}" for f in compare_pose(
+                k, p, args, cfg.poseoptim_thresh)[1]]
+            if method == "gn":
+                one = (lambda a=args, c=cfg: pose_opt.optimize_pose(*a, c))
+                failures += dispatch_failures({f"{n} rows": (one, 7)})
+                failures += [f"{n} rows reads {r}" for r in host_reads(one)]
+
+    cfg = SVOConfig()
+    scenes = [pose_inputs(10 + s, n=POSE_ROWS[0], outliers=0.05 * (s % 4),
+                          behind=0.02 * (s % 3), device=device)
+              for s in range(11)]
+    q = torch.stack([sc[0].q for sc in scenes])
+    t = torch.stack([sc[0].t for sc in scenes]) + 0.01
+    rows = [torch.stack([sc[i] for sc in scenes]) for i in range(1, 5)]
+    focal = scenes[0][5]
+
+    def batched(c):
+        return torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
+            SE3(q=q, t=t), *r, focal, c))(q, t, *rows)
+
+    pg.reset_launch_counts()
+    out = batched(cfg)
+    out_p = batched(cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    if pg.LAUNCHES[kernel] != 1:
+        failures.append(f"batched: {pg.LAUNCHES[kernel]} launches for a "
+                        "vmapped call and its plain run")
+    for b in range(11):
+        args = (SE3(q=q[b], t=t[b]), *(r[b] for r in rows), focal)
+        kb, pb = ((SE3(q=o[0].q[b], t=o[0].t[b]), *(v[b] for v in o[1:]))
+                  for o in (out, out_p))
+        failures += [f"batched, frame {b}: {f}" for f in compare_pose(
+            kb, pb, args, cfg.poseoptim_thresh)[1]]
+        one = pose_opt.optimize_pose(*args, cfg)
+        if not all(same_bits(o, s) for o, s in zip(
+                (kb[0].q, kb[0].t, *kb[1:]), (one[0].q, one[0].t, *one[1:]))):
+            failures.append(f"batched, frame {b}: differs from its single "
+                            "launch")
+    failures += dispatch_failures({"batched": (lambda: batched(cfg), None)})
+    failures += [f"batched reads {r}" for r in host_reads(
+        lambda: batched(cfg))]
+    return failures
+
+
+def align_failures(device="cuda") -> list:
+    """sparse_align_kernel against the plain loop (`compare_align`) at the
+    cells' cameras and rows (radtan at 752x480, 912; no distortion at
+    640x480, 768), GN and LM, one launch a call, no read back; 11 radtan
+    frames in one batched call: one launch, no read back, each frame bit
+    for bit its single launch (its iteration counts too) and within
+    `compare_align` of its plain loop."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.ops import sparse_align
+    from android_svo_tpu_torch.ops import sparse_align_gn as sg
+    kernel = "sparse_align_kernel"
+    cfg = SVOConfig()
+    failures = []
+    for camera in ("radtan", "pinhole"):
+        args = align_inputs(1, camera, device=device)
+        for method in ("gn", "lm"):
+            sg.reset_launch_counts()
+            k = sparse_align.sparse_img_align(*args, cfg, method=method)
+            p = sparse_align.sparse_img_align(
+                *args, cfg.replace(use_pallas=False), method=method)
+            torch.cuda.synchronize()
+            what = f"{camera}, {method}"
+            if sg.LAUNCHES[kernel] != 1:
+                failures.append(f"{what}: {sg.LAUNCHES[kernel]} launches "
+                                "for a kernel and a plain call")
+            failures += [f"{what}: {f}"
+                         for f in compare_align(k, p, args)[1]]
+            failures += [f"{what} reads {r}" for r in host_reads(
+                lambda: sparse_align.sparse_img_align(*args, cfg,
+                                                      method=method))]
+
+    scenes = [align_inputs(10 + s, "radtan", device=device,
+                           behind=0.02 * (s % 3), margin=0.1 * (s % 2))
+              for s in range(11)]
+    batch = stack_align_inputs(scenes)
+    sg.reset_launch_counts()
+    T, n_tr, chi2 = sparse_align.sparse_img_align(*batch, cfg, batched=True)
+    its = sparse_align.KERNEL_ITERATIONS.tolist()
+    if sg.LAUNCHES[kernel] != 1:
+        failures.append(f"batched: {sg.LAUNCHES[kernel]} launches for 11 "
+                        "frames")
+    for b, sc in enumerate(scenes):
+        one = sparse_align.sparse_img_align(*sc, cfg)
+        if not (all(same_bits(o, w) for o, w in zip(
+                (T.q[b], T.t[b], n_tr[b], chi2[b]),
+                (one[0].q, one[0].t, one[1], one[2])))
+                and its[b] == sparse_align.KERNEL_ITERATIONS.tolist()):
+            failures.append(f"batched, frame {b}: differs from its single "
+                            "launch")
+        p = sparse_align.sparse_img_align(*sc, cfg.replace(use_pallas=False))
+        failures += [f"batched, frame {b}: {f}"
+                     for f in compare_align(one, p, sc)[1]]
+    failures += [f"batched reads {r}" for r in host_reads(
+        lambda: sparse_align.sparse_img_align(*batch, cfg, batched=True))]
+    return failures
+
+
+def probe_failures(device="cuda", n: int = PROBE_N) -> list:
+    """probe_patches_kernel on the gather microbench's inputs at n
+    features: every variant within 1e-5 of its plain version, variant A
+    within 1e-4 of interp.extract_patches; variant A's call one launch, at
+    most 1 ATen op (its output) and one device activity."""
+    from android_svo_tpu_torch.ops import gather_probe as gp, interp
+    from android_svo_tpu_torch.tools import microbench_gather
+    img, uv = microbench_gather.make_inputs(n=n, seed=1, device=device)
+    failures = []
+    for v in gp.VARIANTS:
+        out = gp.probe_patches(img, uv, v)
+        d = float((out - gp.probe_patches_plain(img, uv, v)).abs().max())
+        if not d <= 1e-5:
+            failures.append(f"variant {v}: max|d| vs plain {d} > 1e-5")
+        if v == "A":
+            d = float((out - interp.extract_patches(img, uv, gp.P // 2))
+                      .abs().max())
+            if not d <= 1e-4:
+                failures.append(f"variant A: max|d| vs extract_patches "
+                                f"{d} > 1e-4")
+    return failures + dispatch_failures(
+        {"variant A": (lambda: gp.probe_patches(img, uv, "A"), 1)})
+
+
+def path_gate(device="cuda") -> dict:
+    """Every kernel against its plain version, its launches and its
+    dispatch at the tracking path's shapes: `run_gate`, the two extra
+    forms and each form's dispatch (`dispatch_cases`) at `PATH_SHAPES`;
+    no ICLK layout spilling at their rows; `run_batched_gate` and
+    `batched_extra_failures` at `BATCHED_PATH_SHAPES`; pose GN
+    (`pose_failures`), sparse alignment (`align_failures`) and the gather
+    probe (`probe_failures`).  Returns check -> its failures (empty where
+    it held).  The card tests and `chip_smoke.py` both run it; a new
+    kernel's check at the path's shapes goes here."""
+    out = {}
+    for name, (n, h, w) in PATH_SHAPES.items():
+        x = gate_inputs(n=n, h=h, w=w, seed=0, device=device)
+        out[f"gate {name}"] = (
+            run_gate(x).failures + extra_forms_failures(x)
+            + dispatch_failures(dispatch_cases(x)))
+        out[f"iclk layout {n} rows"] = [
+            f"{'window' if window else 'align'}: {r['local_bytes']} local "
+            "bytes a thread"
+            for window in (False, True)
+            for r in [pk.iclk_residency(4, window, n)] if r["local_bytes"]]
+    for name, (b, n, h, w) in BATCHED_PATH_SHAPES.items():
+        frames, xb = batched_gate_inputs(b, n=n, h=h, w=w, seed=0,
+                                         device=device)
+        out[f"batched gate {name}"] = (
+            run_batched_gate(frames, xb).failures
+            + batched_extra_failures(frames, xb))
+        out[f"iclk layout {b * n} rows"] = [
+            f"{'window' if window else 'align'}: {r['local_bytes']} local "
+            "bytes a thread"
+            for window in (False, True)
+            for r in [pk.iclk_residency(4, window, b * n)]
+            if r["local_bytes"]]
+    out["pose_gn_kernel"] = pose_failures(device)
+    out["sparse_align_kernel"] = align_failures(device)
+    out["probe_patches_kernel"] = probe_failures(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# least times of the kernels the benchmark's bounds leave out
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM data sheet, as `svo_bench/reference/bounds.py`: HBM3
+# bandwidth and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def least_ms(bytes_moved: float, flops: float) -> tuple:
+    """(ms, "bytes" or "operations", bytes, flops): the larger of the bytes
+    over the HBM's rate and the operations over the float32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            int(bytes_moved), int(flops))
+
+
+def pose_bound(n: int, n_iter: int, batch: int = 1) -> tuple:
+    """Least time of pose_gn_kernel on `batch` frames of n rows
+    (`least_ms`): the bytes it must move (29 a row read: p_w, f_meas,
+    level, valid; 1 a row written: the inlier mask; 72 for the pose, focal
+    and the scalars; 144 for cov), or its fp32 operations: a row costs ~36
+    in a weighted cost (transform, projection, norm, Tukey weight) and
+    ~170 in the normal equations (the 2x6 Jacobian, 21 + 6 products summed
+    over two residuals), so ~242 an iteration (the cost at the pose, the
+    system, the cost at the step) and ~235 at the start and the end (the
+    residuals, the final system).  The kernel is bound by neither: by the
+    latency of its serial iterations."""
+    return least_ms(batch * (n * 30 + 72 + 144),
+                    batch * n * (242 * n_iter + 235))
+
+
+def align_bound(n: int, n_iter: int, batch: int = 1, n_levels: int = 3,
+                area: int = 16) -> tuple:
+    """Least time of sparse_align_kernel on `batch` frames of n rows that
+    ran n_iter iterations in all, summed over the frames (`least_ms`): the
+    bytes it must move (the reference side once a level: a flag and the
+    patch, gx and gy a row, 1 + 12 area bytes; the points once, 12 a row;
+    the current level planes at most once, taken as the 4x4 taps of every
+    row, 4 area bytes a row a level; 40 written), or its fp32 operations:
+    a row costs ~60 in the transform and projection and ~85 a pixel (the
+    bilinear taps, J from gx and gy, 21 + 6 products and chi2) an
+    iteration.  The kernel is bound by neither: by the latency of its
+    serial iterations."""
+    return least_ms(batch * (n * (12 + n_levels * (1 + 16 * area)) + 40),
+                    n * n_iter * (60 + 85 * area))
+
+
+def probe_bound(img: torch.Tensor, uv: torch.Tensor, variant: str) -> tuple:
+    """Least time of one probe call (`least_ms`): the distinct pixels its
+    windows touch (clamped to the image) read once, uv read once, the
+    patches written once; ~11 fp32 flops per output pixel."""
+    from android_svo_tpu_torch.ops import gather_probe as gp
+    h, w = img.shape
+    oy, ox = gp.window_origin(uv, variant, h, w)
+    r = torch.arange(gp.P + 1, device=uv.device)
+    rows = (oy[:, None, None] + r[None, :, None]).clamp(0, h - 1)
+    cols = (ox[:, None, None] + r[None, None, :]).clamp(0, w - 1)
+    mask = torch.zeros(h * w, dtype=torch.bool, device=uv.device)
+    mask[(rows * w + cols).reshape(-1)] = True
+    n = uv.shape[0]
+    return least_ms(int(mask.sum()) * 4 + n * 8 + n * gp.P * gp.P * 4,
+                    n * gp.P * gp.P * 11)

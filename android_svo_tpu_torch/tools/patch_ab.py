@@ -60,7 +60,7 @@ from android_svo_tpu_torch.utils.profiling import device_ms
 
 OUT_DIR = cuda_build.BUILD_DIR.parent / "patch_ab"
 PATH_SPACING = 0.7          # ops/matcher.py: n_steps = epi_len / 0.7 + 1
-BATCH = 11                  # phase 10a's frames
+BATCH = 11                  # the batched step's frames (11 sequences)
 GATE_FORMS = ("sample_patches_kernel", "sample_patches_kernel/align1d",
               "sample_patches_kernel/grad", "epi_scan_kernel",
               "align_iclk_kernel", "align_iclk_window_kernel",
@@ -321,8 +321,8 @@ def _host_us(fn, iters: int = 2000) -> float:
 
 
 def wrapper_split(xb: dict) -> dict:
-    """Host microseconds per call of the batched 4x4 sampler (phase 10a's
-    call, B x 768 rows) and of each part of it: the checks, the output
+    """Host microseconds per call of the batched 4x4 sampler (the batched
+    step's call, B x 768 rows) and of each part of it: the checks, the output
     allocation, the stack's arguments, the stream, the data pointers, the
     ctypes call alone (with n = 0 the launcher returns at once) and with
     its launch, and the views the earlier wrapper made (three flattening
@@ -375,8 +375,8 @@ def wrapper_split(xb: dict) -> dict:
 
 
 def iclk_wrapper_split(xb: dict) -> dict:
-    """Host microseconds per call of the two batched ICLK wrappers (phase
-    10a's calls, B x 768 rows, 10 iterations) and of the parts of one: the
+    """Host microseconds per call of the two batched ICLK wrappers (the
+    batched step's calls, B x 768 rows, 10 iterations) and of the parts of one: the
     kernel wrapper alone (`_align_kernel`: the checks, three allocations,
     the arguments and the launch), three output allocations, the stack's
     arguments, the stream, the ctypes call alone (n = 0: the launcher

@@ -13,6 +13,8 @@ card need not have.)
 import pytest
 import torch
 
+from android_svo_tpu_torch.ops import silicon_gate
+
 pytestmark = pytest.mark.cuda
 
 
@@ -25,15 +27,41 @@ def card():
 
 @pytest.fixture(scope="module")
 def problem(card):
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.gate_inputs(n=256, h=240, w=320, seed=1, device=card)
 
 
-def test_kernel_gate(problem):
-    from android_svo_tpu_torch.ops import silicon_gate
-    rep = silicon_gate.run_gate(problem)
+# The gate problems of the tests that take `gate_problem`: the fixture's 256
+# rows on 320x240, and the tracking path's shapes, as (n, h, w)
+GATE_SHAPES = {"256_320x240": None, **silicon_gate.PATH_SHAPES}
+
+
+@pytest.fixture(scope="module")
+def gate_problem(request, problem):
+    shape = GATE_SHAPES[request.param]
+    if shape is None:
+        return problem
+    n, h, w = shape
+    return silicon_gate.gate_inputs(n=n, h=h, w=w, seed=0,
+                                    device=problem["stack"].device)
+
+
+@pytest.mark.parametrize("gate_problem", list(GATE_SHAPES), indirect=True)
+def test_kernel_gate(gate_problem):
+    """`silicon_gate.run_gate` at each shape, and the two forms it leaves
+    out with its bounds (`silicon_gate.extra_forms_failures`)."""
+    rep = silicon_gate.run_gate(gate_problem)
     torch.cuda.synchronize()
     assert rep.ok, rep.failures
+    assert not silicon_gate.extra_forms_failures(gate_problem)
+
+
+def test_path_gate(card):
+    """`silicon_gate.path_gate`, which `chip_smoke.py` runs too: every
+    kernel against its plain version, its launches and its dispatch at
+    the tracking path's shapes, pose GN, sparse alignment and the probe
+    included."""
+    failed = {k: v for k, v in silicon_gate.path_gate(card).items() if v}
+    assert not failed, failed
 
 
 @pytest.mark.parametrize("name", ["sample_patches_kernel", "epi_scan_kernel",
@@ -46,7 +74,6 @@ def test_kernel_gate(problem):
                                   "epi_scan_kernel/path"])
 def test_wrapper_launches_and_counts(problem, name):
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     from android_svo_tpu_torch.tools import patch_ab
     call = {**silicon_gate.kernel_calls(problem),
             **patch_ab.extra_calls(problem)}[name]
@@ -63,7 +90,7 @@ def test_align1d_sampler_form_matches_plain(problem):
     """The 1D alignment's sampler form (8x8 at mixed levels on the 3-level
     stack, a valid mask) within the gate's 0.02 on live slots, and the
     whole align1d_stack loop (ten such launches) against its plain run."""
-    from android_svo_tpu_torch.ops import matcher, silicon_gate
+    from android_svo_tpu_torch.ops import matcher
     from android_svo_tpu_torch.ops import patch_kernels as pk
     x = problem
     call = silicon_gate.kernel_calls(x)["sample_patches_kernel/align1d"]
@@ -93,13 +120,14 @@ def _same(a, b):
             and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
-@pytest.mark.parametrize("n", [0, 1, 7, 2049, 32768])
+@pytest.mark.parametrize("n", [0, 1, 7, 2048, 2049, 32768])
 def test_probe_kernel_matches_plain(card, n):
     """probe_patches_kernel against probe_patches_plain, bit for bit, every
-    variant, at sizes with partial blocks and warps (8 features per block)
-    and at 16x the microbench's N: the kernel stages the plain version's
-    clamped taps and rounds each operation as the plain version does."""
-    from android_svo_tpu_torch.ops import gather_probe as gp
+    variant, at sizes with partial blocks and warps (8 features per block),
+    at the microbench's N and at 16x it: the kernel stages the plain
+    version's clamped taps and rounds each operation as the plain version
+    does.  Variant A within 1e-4 of interp.extract_patches."""
+    from android_svo_tpu_torch.ops import gather_probe as gp, interp
     from android_svo_tpu_torch.tools.microbench_gather import make_inputs
     img, uv = make_inputs(n=n, seed=2, device=card)
     for v in gp.VARIANTS:
@@ -109,6 +137,9 @@ def test_probe_kernel_matches_plain(card, n):
         assert gp.LAUNCHES["probe_patches_kernel"] == (1 if n else 0)
         assert out.shape == (n, gp.P, gp.P)
         assert torch.equal(out, gp.probe_patches_plain(img, uv, v)), v
+        if v == "A" and n:
+            ref = interp.extract_patches(img, uv, gp.P // 2)
+            assert float((out - ref).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
@@ -162,12 +193,11 @@ def test_probe_dispatch_counts(card, variant):
     allocation) and exactly 1 device activity, one launch counted."""
     from android_svo_tpu_torch.ops import gather_probe as gp
     from android_svo_tpu_torch.tools.microbench_gather import make_inputs
-    from android_svo_tpu_torch.utils.profiling import dispatch_counts
     img, uv = make_inputs(seed=6, device=card)
     gp.probe_patches(img, uv, variant)              # build and warm up
     gp.reset_launch_counts()
-    n_ops, n_dev = dispatch_counts(lambda: gp.probe_patches(img, uv,
-                                                            variant))
+    n_ops, n_dev = silicon_gate.dispatch_counts(
+        lambda: gp.probe_patches(img, uv, variant))
     assert n_ops <= 1 and n_dev == 1, (n_ops, n_dev)
     assert gp.LAUNCHES["probe_patches_kernel"] == 1
 
@@ -288,37 +318,21 @@ def test_wrappers_refuse_other_types(problem):
     assert all(v == 0 for v in pk.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("gate_problem", list(GATE_SHAPES), indirect=True)
 @pytest.mark.parametrize("case", ["sample_4x4", "sample_8x8_grad",
-                                  "sample_8x8_align1d", "window_gated",
-                                  "window_ungated", "align", "scan",
-                                  "scan_no_steps", "dump"])
-def test_wrapper_dispatch_counts(problem, case):
+                                  "sample_8x8_align1d", "sample_4x4_ref_grad",
+                                  "window_gated", "window_ungated", "align",
+                                  "scan", "scan_path", "scan_no_steps",
+                                  "dump"])
+def test_wrapper_dispatch_counts(gate_problem, case):
     """Under torch.profiler one call of the sampler dispatches at most 4
     ATen ops and one of align_iclk_mxu, align_iclk, epi_scan or
-    dump_windows at most 3, each exactly 1 device kernel."""
+    dump_windows at most 3, each exactly 1 device kernel
+    (`silicon_gate.dispatch_cases`)."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
-    from android_svo_tpu_torch.utils.profiling import dispatch_counts
-    x = problem
-    calls = silicon_gate.kernel_calls(x)
-    fn, limit = {
-        "sample_4x4": (lambda: calls["sample_patches_kernel"](True), 4),
-        "sample_8x8_grad": (lambda: pk.sample_patches(
-            x["stack"], x["lvl"], x["uv"], 4, grad=True), 4),
-        "sample_8x8_align1d": (
-            lambda: calls["sample_patches_kernel/align1d"](True), 4),
-        "window_gated": (lambda: calls["align_iclk_window_kernel"](True), 3),
-        "window_ungated": (
-            lambda: calls["align_iclk_window_kernel/ungated"](True), 3),
-        "align": (lambda: calls["align_iclk_kernel"](True), 3),
-        "scan": (lambda: calls["epi_scan_kernel"](True), 3),
-        "scan_no_steps": (lambda: pk.epi_scan(
-            x["stack"], x["lvl"], x["uv_a"], x["uv_b"], x["ref"], 100,
-            h=x["h"], w=x["w"]), 3),
-        "dump": (lambda: calls["dump_windows_kernel"](True), 3),
-    }[case]
+    fn, limit = silicon_gate.dispatch_cases(gate_problem)[case]
     fn()                                   # build and warm up
-    n_ops, n_dev = dispatch_counts(fn)
+    n_ops, n_dev = silicon_gate.dispatch_counts(fn)
     assert n_ops <= limit and n_dev == 1, (n_ops, n_dev)
 
 
@@ -648,9 +662,24 @@ def test_handler_takes_device_and_pinned_frames(card):
 
 @pytest.fixture(scope="module")
 def batched_problem(card):
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.batched_gate_inputs(3, n=256, h=240, w=320, seed=2,
                                             device=card)
+
+
+# The batched problems of the tests that take `batched_gate_problem`: the
+# fixture's 3 frames of 256 rows on 320x240, and the batched step's 11
+# frames of 768 rows on EuRoC cam0's 752x480, as (B, n, h, w)
+BATCHED_SHAPES = {"3x256_320x240": None, "11x768_752x480": (11, 768, 480, 752)}
+
+
+@pytest.fixture(scope="module")
+def batched_gate_problem(request, batched_problem):
+    shape = BATCHED_SHAPES[request.param]
+    if shape is None:
+        return batched_problem
+    b, n, h, w = shape
+    return silicon_gate.batched_gate_inputs(
+        b, n=n, h=h, w=w, seed=0, device=batched_problem[1]["stack"].device)
 
 
 BATCHED_FORMS = ["sample_patches_kernel", "sample_patches_kernel/grad",
@@ -660,14 +689,16 @@ BATCHED_FORMS = ["sample_patches_kernel", "sample_patches_kernel/grad",
                  "sample_patches_kernel/ref_grad", "epi_scan_kernel/path"]
 
 
+@pytest.mark.parametrize("batched_gate_problem", list(BATCHED_SHAPES),
+                         indirect=True)
 @pytest.mark.parametrize("name", BATCHED_FORMS)
-def test_batched_kernel_matches_single_launches(batched_problem, name):
-    """A batched call is one launch, and each frame's rows equal that
-    frame's own single launch bit for bit."""
+def test_batched_kernel_matches_single_launches(batched_gate_problem, name):
+    """A batched call is one launch and one device activity (an ICLK at
+    most 3 ATen ops), and each frame's rows equal that frame's own single
+    launch bit for bit."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     from android_svo_tpu_torch.tools import patch_ab
-    frames, xb = batched_problem
+    frames, xb = batched_gate_problem
     kernel = silicon_gate.kernel_of(name)
     call = {**silicon_gate.batched_kernel_calls(xb),
             **patch_ab.extra_calls(xb, batched=True)}[name]
@@ -675,6 +706,10 @@ def test_batched_kernel_matches_single_launches(batched_problem, name):
     out = call(True)
     torch.cuda.synchronize()
     assert pk.LAUNCHES[kernel] == 1
+    # the ICLKs read the (B, N) rows in place: three output allocations
+    n_ops, n_dev = silicon_gate.dispatch_counts(lambda: call(True))
+    assert n_dev == 1 and (not name.startswith("align_iclk") or n_ops <= 3), \
+        (n_ops, n_dev)
     out = out if isinstance(out, tuple) else (out,)
     for b, x in enumerate(frames):
         single = {**silicon_gate.gate_calls(x),
@@ -684,11 +719,17 @@ def test_batched_kernel_matches_single_launches(batched_problem, name):
             assert silicon_gate.same_bits(o[b], s), (name, b)
 
 
-def test_batched_gate(batched_problem):
-    from android_svo_tpu_torch.ops import silicon_gate
-    rep = silicon_gate.run_batched_gate(*batched_problem)
+@pytest.mark.parametrize("batched_gate_problem", list(BATCHED_SHAPES),
+                         indirect=True)
+def test_batched_gate(batched_gate_problem):
+    """`silicon_gate.run_batched_gate` at each shape, and the two forms it
+    leaves out, batched, with the gate's bounds
+    (`silicon_gate.extra_forms_failures`)."""
+    rep = silicon_gate.run_batched_gate(*batched_gate_problem)
     torch.cuda.synchronize()
     assert rep.ok, rep.failures
+    assert not silicon_gate.extra_forms_failures(batched_gate_problem[1],
+                                                 batched=True)
 
 
 VMAP_WRAPPERS = {
@@ -709,7 +750,6 @@ def test_vmap_of_a_wrapper_launches_once(batched_problem, kernel):
     """torch.func.vmap over the per-frame wrapper takes the batched form:
     one launch for the batch, equal to the batched form bit for bit."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     _, xb = batched_problem
     args, single, batched = VMAP_WRAPPERS[kernel]
     pk.reset_launch_counts()
@@ -728,7 +768,6 @@ def test_batched_dump_reads_a_shared_stack(batched_problem):
     in_dims None gives it): one launch, each frame's rows equal to its own
     single launch on that stack bit for bit, dead rows zero."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     frames, xb = batched_problem
     stack = frames[1]["stack"]
     feats = (xb["lvl"], xb["dump_uv"], xb["valid_mixed"])
@@ -1022,7 +1061,6 @@ ICLK_FORMS = ["align_iclk_kernel", "align_iclk_window_kernel",
 @pytest.fixture(scope="module")
 def wide_problem(card):
     """2,304 features on one 240x320 frame: above the packing threshold."""
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.gate_inputs(n=2304, h=240, w=320, seed=5,
                                     device=card)
 
@@ -1031,7 +1069,6 @@ def wide_problem(card):
 def packed_problem(card):
     """11 frames of 256 features: 2,816 rows, packed in a batched launch;
     each frame's single launch is not."""
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.batched_gate_inputs(11, n=256, h=240, w=320, seed=6,
                                             device=card)
 
@@ -1084,7 +1121,6 @@ def _iclk_args(x, rows=slice(None), half=4):
 
 
 def _same_all(a, b):
-    from android_svo_tpu_torch.ops import silicon_gate
     return all(silicon_gate.same_bits(u, v) for u, v in zip(a, b))
 
 
@@ -1120,7 +1156,7 @@ def test_iclk_layout_follows_the_row_count(card, half, window):
     from android_svo_tpu_torch.ops import patch_kernels as pk
     pack = _pack_rows()
     assert 1536 < pack <= 3072
-    for n in (1, 767, pack - 1, pack, 8448):
+    for n in (1, 767, 768, pack - 1, pack, 8448):
         r = pk.iclk_residency(half, window, n)
         v = 2 if half <= 4 and n >= pack else 1
         assert r["features_per_warp"] == v, (n, r)
@@ -1257,7 +1293,6 @@ def test_iclk_packed_batch_matches_single_launches(packed_problem, form):
     """A batched launch of 11 x 256 rows (packed) gives each frame the bits
     of its own single launch of 256 rows (a warp a feature)."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     frames, xb = packed_problem
     kernel = silicon_gate.kernel_of(form)
     assert pk.iclk_residency(4, "window" in form, 11 * 256)[
@@ -1278,7 +1313,6 @@ def test_iclk_vmap_takes_moved_and_expanded_args(packed_problem, form):
     every frame (expanded): one launch, bit for bit the batched wrapper on
     the same values laid out contiguously."""
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate
     _, xb = packed_problem
     B, N = xb["lvl"].shape
     h, w = xb["h"], xb["w"]
@@ -1306,12 +1340,10 @@ def test_iclk_vmap_takes_moved_and_expanded_args(packed_problem, form):
 def test_batched_iclk_dispatch_counts(packed_problem, form):
     """A batched ICLK call is its three output allocations and one launch:
     at most 3 ATen ops and exactly 1 device activity."""
-    from android_svo_tpu_torch.ops import silicon_gate
-    from android_svo_tpu_torch.utils.profiling import dispatch_counts
     _, xb = packed_problem
     fn = silicon_gate.batched_kernel_calls(xb)[form]
     fn(True)
-    n_ops, n_dev = dispatch_counts(lambda: fn(True))
+    n_ops, n_dev = silicon_gate.dispatch_counts(lambda: fn(True))
     assert n_ops <= 3 and n_dev == 1, (n_ops, n_dev)
 
 
@@ -1418,7 +1450,6 @@ def test_spans_bracket_the_work_they_launch(card, tmp_path):
 # ---------------------------------------------------------------------------
 
 def _pose_scene(seed, **kw):
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.pose_inputs(seed, **kw)
 
 
@@ -1446,7 +1477,7 @@ def test_pose_kernel_matches_plain(card, scene, method, n_iter):
     1e-3 relative plus 1e-9, cov 1e-2 of its largest entry, inliers equal
     but for rows within 0.05 px of the threshold, the count the mask's."""
     from android_svo_tpu_torch.core import pose_opt
-    from android_svo_tpu_torch.ops import pose_gn, silicon_gate
+    from android_svo_tpu_torch.ops import pose_gn
     cfg = _pose_cfg(method, n_iter)
     for seed in (1, 2):
         args = _pose_scene(seed, **POSE_SCENES[scene])
@@ -1467,7 +1498,9 @@ def test_pose_kernel_batched_matches_single_launches(card):
     """torch.func.vmap over optimize_pose on 11 sequences (focal shared,
     every other input batched) is ONE launch, and each sequence's outputs
     equal its own single launch bit for bit: each block sums in an order
-    that does not depend on the batch."""
+    that does not depend on the batch.  Each sequence is within
+    `silicon_gate.compare_pose`'s tolerances of the vmapped plain
+    version."""
     from android_svo_tpu_torch.core import pose_opt
     from android_svo_tpu_torch.geometry.se3 import SE3
     from android_svo_tpu_torch.ops import pose_gn
@@ -1478,28 +1511,39 @@ def test_pose_kernel_batched_matches_single_launches(card):
              t=torch.stack([s[0].t for s in scenes]) + 0.01)
     rows = [torch.stack([s[i] for s in scenes]) for i in range(1, 5)]
     focal = scenes[0][5]
+
+    def batched(c):
+        return torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
+            SE3(q=q, t=t), *r, focal, c))(T0.q, T0.t, *rows)
+
+    def frame(out, b):
+        return (SE3(q=out[0].q[b], t=out[0].t[b]), *(o[b] for o in out[1:]))
+
     pose_gn.reset_launch_counts()
-    out = torch.func.vmap(lambda q, t, *r: pose_opt.optimize_pose(
-        SE3(q=q, t=t), *r, focal, cfg))(T0.q, T0.t, *rows)
+    out = batched(cfg)
     torch.cuda.synchronize()
     assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
+    out_p = batched(cfg.replace(use_pallas=False))
     flat = (out[0].q, out[0].t, *out[1:])
     for b in range(11):
-        single = pose_opt.optimize_pose(SE3(q=T0.q[b], t=T0.t[b]),
-                                        *(r[b] for r in rows), focal, cfg)
+        args = (SE3(q=T0.q[b], t=T0.t[b]), *(r[b] for r in rows), focal)
+        single = pose_opt.optimize_pose(*args, cfg)
         for o, s in zip(flat, (single[0].q, single[0].t, *single[1:])):
             assert torch.equal(o[b], s), b
+        _, failures = silicon_gate.compare_pose(
+            frame(out, b), frame(out_p, b), args, cfg.poseoptim_thresh)
+        assert not failures, (b, failures)
     assert pose_gn.LAUNCHES["pose_gn_kernel"] == 12
 
 
 @pytest.mark.parametrize("batched", [False, True])
 def test_pose_kernel_launches_once_and_reads_nothing_back(card, batched):
     """One call (a frame, or a vmapped batch of 11) is exactly one launch
-    of pose_gn_kernel, and nothing in it reads the device back: no
-    `aten::item` or `aten::_local_scalar_dense`, no device-to-host copy.
-    With use_pallas off the plain version runs on the card and launches
-    nothing."""
-    from torch.profiler import ProfilerActivity, profile
+    of pose_gn_kernel and one device activity (a frame's call at most 7
+    ATen ops), and nothing in it reads the device back: no `aten::item`
+    or `aten::_local_scalar_dense`, no device-to-host copy, no wait for
+    the card (`silicon_gate.host_reads`).  With use_pallas off the plain
+    version runs on the card and launches nothing."""
     from android_svo_tpu_torch.core import pose_opt
     from android_svo_tpu_torch.geometry.se3 import SE3
     from android_svo_tpu_torch.ops import pose_gn
@@ -1520,16 +1564,11 @@ def test_pose_kernel_launches_once_and_reads_nothing_back(card, batched):
             return pose_opt.optimize_pose(*args, c)
     call(cfg)                                   # warm
     torch.cuda.synchronize()
+    n_ops, n_dev = silicon_gate.dispatch_counts(lambda: call(cfg))
+    assert n_dev == 1 and (batched or n_ops <= 7), (n_ops, n_dev)
     pose_gn.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call(cfg)
-        torch.cuda.synchronize()
+    assert not silicon_gate.host_reads(lambda: call(cfg))
     assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
-    names = [e.name for e in prof.events()]
-    assert "aten::item" not in names
-    assert "aten::_local_scalar_dense" not in names
-    assert not [n for n in names if "DtoH" in n or "Device -> Host" in n]
     call(cfg.replace(use_pallas=False))
     torch.cuda.synchronize()
     assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
@@ -1706,7 +1745,6 @@ def test_align1d_on_the_edgelet_cell_holds_to_the_reference(card):
 # ---------------------------------------------------------------------------
 
 def _align_scene(seed, camera="radtan", **kw):
-    from android_svo_tpu_torch.ops import silicon_gate
     return silicon_gate.align_inputs(seed, camera, **kw)
 
 
@@ -1740,7 +1778,7 @@ def test_align_kernel_matches_plain(card, scene, camera, method):
     its first.  At 2,048 rows, or with 6x6 patches, the reference rows no
     longer fit in shared memory and the kernel reads them in place."""
     from android_svo_tpu_torch.config import SVOConfig
-    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align
     from android_svo_tpu_torch.ops import sparse_align_gn
     scene_kw, cfg_kw = ALIGN_SCENES[scene]
     cfg = SVOConfig(**cfg_kw)
@@ -1771,9 +1809,10 @@ def test_align_kernel_batched_matches_single_launches(card):
     but the camera) is ONE launch, and each frame's outputs and iteration
     counts equal its own single launch bit for bit: each block sums in an
     order that does not depend on the batch and stops where its own loop
-    stops."""
+    stops.  Each frame is within `silicon_gate.compare_align`'s tolerances
+    of its plain loop."""
     from android_svo_tpu_torch.config import SVOConfig
-    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align
     from android_svo_tpu_torch.ops import sparse_align_gn
     cfg = SVOConfig()
     scenes = [_align_scene(10 + s, behind=0.02 * (s % 3),
@@ -1790,6 +1829,9 @@ def test_align_kernel_batched_matches_single_launches(card):
         assert torch.equal(T.q[b], T1.q) and torch.equal(T.t[b], T1.t), b
         assert torch.equal(n_tr[b], n1) and torch.equal(chi2[b], c1), b
         assert torch.equal(its[b], sparse_align.KERNEL_ITERATIONS), b
+        p = sparse_align.sparse_img_align(*sc, cfg.replace(use_pallas=False))
+        _, failures = silicon_gate.compare_align((T1, n1, c1), p, sc)
+        assert not failures, (b, failures)
     assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 12
 
 
@@ -1798,12 +1840,12 @@ def test_align_kernel_launches_once_and_reads_nothing_back(card, batched):
     """One call (a frame, or a batch of 11) is exactly one launch of
     sparse_align_kernel beside the set-up's sampler launch per level, and
     nothing in it reads the device back: no `aten::item` or
-    `aten::_local_scalar_dense`, no device-to-host copy.  With use_pallas
-    off the plain loop runs on the card and launches neither."""
-    from torch.profiler import ProfilerActivity, profile
+    `aten::_local_scalar_dense`, no device-to-host copy, no wait for the
+    card (`silicon_gate.host_reads`).  With use_pallas off the plain loop
+    runs on the card and launches neither."""
     from android_svo_tpu_torch.config import SVOConfig
     from android_svo_tpu_torch.ops import patch_kernels as pk
-    from android_svo_tpu_torch.ops import silicon_gate, sparse_align
+    from android_svo_tpu_torch.ops import sparse_align
     from android_svo_tpu_torch.ops import sparse_align_gn
     cfg = SVOConfig()
     if batched:
@@ -1819,16 +1861,9 @@ def test_align_kernel_launches_once_and_reads_nothing_back(card, batched):
     torch.cuda.synchronize()
     sparse_align_gn.reset_launch_counts()
     pk.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call(cfg)
-        torch.cuda.synchronize()
+    assert not silicon_gate.host_reads(lambda: call(cfg))
     assert sparse_align_gn.LAUNCHES["sparse_align_kernel"] == 1
     assert pk.LAUNCHES["sample_patches_kernel"] == 3
-    names = [e.name for e in prof.events()]
-    assert "aten::item" not in names
-    assert "aten::_local_scalar_dense" not in names
-    assert not [n for n in names if "DtoH" in n or "Device -> Host" in n]
     pk.reset_launch_counts()
     call(cfg.replace(use_pallas=False))
     torch.cuda.synchronize()

@@ -484,6 +484,20 @@ def test_gate_report_as_dict():
     assert got["detail"]["sample.patch"] == 0.012346
 
 
+def test_least_times_of_the_pose_and_alignment_kernels():
+    """pose_bound and align_bound give the bounds PERF.md's kernel table
+    records (912 rows, 10 iterations; 11 frames of 912 rows, 148 iterations
+    in all); a batch multiplies the bytes, and the alignment's operations
+    follow the iterations summed over the frames, not the batch."""
+    ms, by, n_bytes, _ = silicon_gate.pose_bound(912, 10)
+    assert (round(ms, 6), by, n_bytes) == (0.000036, "operations", 27576)
+    ms, by, n_bytes, flops = silicon_gate.align_bound(912, 148, batch=11)
+    assert (round(ms, 5), by) == (0.00286, "operations")
+    one = silicon_gate.align_bound(912, 148)
+    assert n_bytes == 11 * one[2] and flops == one[3]
+    assert silicon_gate.pose_bound(912, 10, batch=11)[2] == 11 * 27576
+
+
 # ---- utils/cache.py ------------------------------------------------------------------------
 
 def test_default_cache_dir_is_the_kernels_build_dir():
