@@ -24,6 +24,7 @@ from android_svo_tpu_torch.core.initialization import (bootstrap_pair,
                                                        ransac_draws)
 from android_svo_tpu_torch.core.reprojector import _kf_cam_pos
 from android_svo_tpu_torch.core.scatter import compact, set_rows, take_row
+from android_svo_tpu_torch.geometry.camera import for_config
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops import detect, matcher
 from android_svo_tpu_torch.ops.detect import cell_index
@@ -190,12 +191,12 @@ class FrameHandler:
                  init_T_cw: Optional[SE3] = None, seed: int = 0,
                  perf_mon=None, device=None):
         self.device = resolve_device(device)
-        self.cam = cam
+        self.cam = for_config(cam, cfg)
         self.cfg = cfg
         self.dims = st.arena_dims(cfg, cam.width, cam.height)
         self.seed = seed
         self.perf_mon = perf_mon
-        self._track = pipeline.make_track_frame(cfg, cam, self.dims)
+        self._track = pipeline.make_track_frame(cfg, self.cam, self.dims)
         self.init_T_cw = (init_T_cw if init_T_cw is not None
                           else SE3.identity(device=self.device))
         self.reset()

@@ -31,6 +31,7 @@ from android_svo_tpu_torch.core.reprojector import (_kf_cam_pos,
 from android_svo_tpu_torch.core.scatter import (add_rows, compact,
                                                 gather_rows, put_row,
                                                 set_rows, take_row)
+from android_svo_tpu_torch.geometry.camera import for_config
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.geometry.triangulation import masked_median
 from android_svo_tpu_torch.ops import detect, interp, matcher
@@ -506,7 +507,9 @@ def make_track_frame(cfg: SVOConfig, cam, dims):
     device the state and image live on.  Its stages (`frame_pyramid`,
     `align_inputs`, `sparse_img_align`, `track_map`, `insert_keyframe`,
     `finish_frame`) are the batched step's too
-    (`parallel/multi_seq.py`)."""
+    (`parallel/multi_seq.py`).  The step holds `cam` as `cfg.use_pallas`
+    has it (`geometry.camera.for_config`)."""
+    cam = for_config(cam, cfg)
 
     def track_frame(vo: st.VOState, img: torch.Tensor):
         cur_pyr, cur_stack = frame_pyramid(img, cfg)

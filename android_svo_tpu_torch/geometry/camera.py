@@ -2,15 +2,36 @@
 `android_svo_tpu/geometry/camera.py`: `PinholeCamera` (radtan distortion
 with the `distortion_free` fast path) and `ATANCamera` (the FOV model).
 
+On CUDA tensors a `PinholeCamera` with distortion computes `cam2world`,
+`world2cam_uv` and `world2cam` in one launch each
+(`ops/camera_kernels.py`): the kernels give the plain code's pixels and
+unit plane bit for bit.  There is no fallback.  The camera's `use_pallas`
+is the dispatch argument every kernel takes (`ops/cuda_build.on_card`);
+`for_config` sets it from `cfg.use_pallas`, and the tracking entry points
+(`FrameHandler`, `make_track_frame`, `make_batched_track`) hold their
+camera so, which makes a run with the knob off plain throughout.  Under
+`torch.func.vmap` a call is the op `svo_torch::camera_cam2world` or
+`svo_torch::camera_world2cam`, whose vmap rule makes the batch one launch.
+On CPU tensors, without distortion and with `use_pallas` False, the plain
+code below runs: it is the spec the kernels answer to.  The kernels take
+float32 alone, with the camera's tensors on the points' device: a
+distorted camera in another dtype, or with its tensors on another device
+than CUDA points, raises on the card.
+
 Pixel convention: px[..., 0] = u (column), px[..., 1] = v (row), origin at
 the centre of the top-left pixel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
+
+from android_svo_tpu_torch.ops import camera_kernels
+from android_svo_tpu_torch.ops.cuda_build import (batch_first, call_op,
+                                                  cfg_use_pallas, on_card)
 
 
 def project2d(xyz: torch.Tensor) -> torch.Tensor:
@@ -36,11 +57,15 @@ class PinholeCamera:
     width: int = 752
     height: int = 480
     distortion_free: bool = False
+    use_pallas: bool | None = None          # the kernels' dispatch argument
 
     @classmethod
     def create(cls, width, height, fx, fy, cx, cy,
                k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
                dtype=torch.float32, device=None) -> "PinholeCamera":
+        """A camera of `dtype` on `device`.  With distortion, calls on CUDA
+        points launch the radtan kernels, which take float32 alone, on the
+        camera's device: build such a camera as float32 on that device."""
         ks = [float(k) for k in (k1, k2, p1, p2, k3)]
 
         def scalar(v):
@@ -57,6 +82,13 @@ class PinholeCamera:
 
     def errorMultiplier2(self) -> torch.Tensor:
         return self.fx
+
+    def _on_card(self, x: torch.Tensor) -> bool:
+        """Whether a call on x launches the radtan kernels."""
+        return not self.distortion_free and on_card(x, self.use_pallas)
+
+    def _params(self) -> tuple:
+        return self.fx, self.fy, self.cx, self.cy, self.dist
 
     def distort(self, uv: torch.Tensor) -> torch.Tensor:
         if self.distortion_free:
@@ -86,14 +118,34 @@ class PinholeCamera:
         return torch.stack([x, y], dim=-1)
 
     def world2cam_uv(self, uv: torch.Tensor) -> torch.Tensor:
+        if self._on_card(uv):
+            return call_op(_world2cam_op, _world2cam_body, uv,
+                           *self._params(), False)
+        return self.world2cam_uv_plain(uv)
+
+    def world2cam(self, xyz: torch.Tensor) -> torch.Tensor:
+        if self._on_card(xyz):
+            return call_op(_world2cam_op, _world2cam_body, xyz,
+                           *self._params(), True)
+        return self.world2cam_plain(xyz)
+
+    def cam2world(self, px: torch.Tensor) -> torch.Tensor:
+        if self._on_card(px):
+            return call_op(_cam2world_op, _cam2world_body, px,
+                           *self._params())
+        return self.cam2world_plain(px)
+
+    # the plain versions: the CPU path, and the spec of the radtan kernels
+
+    def world2cam_uv_plain(self, uv: torch.Tensor) -> torch.Tensor:
         uvd = self.distort(uv)
         return torch.stack([self.fx * uvd[..., 0] + self.cx,
                             self.fy * uvd[..., 1] + self.cy], dim=-1)
 
-    def world2cam(self, xyz: torch.Tensor) -> torch.Tensor:
-        return self.world2cam_uv(project2d(xyz))
+    def world2cam_plain(self, xyz: torch.Tensor) -> torch.Tensor:
+        return self.world2cam_uv_plain(project2d(xyz))
 
-    def cam2world(self, px: torch.Tensor) -> torch.Tensor:
+    def cam2world_plain(self, px: torch.Tensor) -> torch.Tensor:
         uvd = torch.stack([(px[..., 0] - self.cx) / self.fx,
                            (px[..., 1] - self.cy) / self.fy], dim=-1)
         xyz = unproject2d(self.undistort(uvd))
@@ -104,6 +156,49 @@ class PinholeCamera:
         """Pixel inside the image at pyramid `level`, `boundary` px in (ref
         abstract_camera.h isInFrame)."""
         return _in_frame(px, self.width, self.height, boundary, level)
+
+
+def for_config(cam, cfg):
+    """`cam` as `cfg.use_pallas` has it: with the knob off, a
+    `PinholeCamera` runs its plain versions on CUDA tensors too.  Another
+    camera is returned as it is."""
+    if isinstance(cam, PinholeCamera):
+        return dataclasses.replace(cam, use_pallas=cfg_use_pallas(cfg))
+    return cam
+
+
+# The radtan kernels as ops (`PinholeCamera` sends them CUDA tensors only).
+
+def _cam2world_body(px, fx, fy, cx, cy, dist):
+    return camera_kernels.cam2world(px.contiguous(), fx, fy, cx, cy, dist)
+
+
+def _world2cam_body(x, fx, fy, cx, cy, dist, project):
+    return camera_kernels.world2cam(x.contiguous(), fx, fy, cx, cy, dist,
+                                    project)
+
+
+def _vmap_rule(body):
+    """The batch as one call of `body`: the rows are independent, so the
+    points with their batch dimension first are just more rows.  The
+    camera is the batch's one camera."""
+    def rule(info, in_dims, x, *rest):
+        if any(d is not None for d in in_dims[1:]):
+            raise NotImplementedError("the radtan kernels take one camera "
+                                      "for the whole batch")
+        return body(batch_first(x, in_dims[0], info.batch_size), *rest), 0
+    return rule
+
+
+_CAMERA_SCHEMA = "Tensor fx, Tensor fy, Tensor cx, Tensor cy, Tensor dist"
+_cam2world_op = torch.library.custom_op(
+    "svo_torch::camera_cam2world", _cam2world_body, mutates_args=(),
+    schema=f"(Tensor px, {_CAMERA_SCHEMA}) -> Tensor")
+_cam2world_op.register_vmap(_vmap_rule(_cam2world_body))
+_world2cam_op = torch.library.custom_op(
+    "svo_torch::camera_world2cam", _world2cam_body, mutates_args=(),
+    schema=f"(Tensor x, {_CAMERA_SCHEMA}, bool project) -> Tensor")
+_world2cam_op.register_vmap(_vmap_rule(_world2cam_body))
 
 
 def _in_frame(px, width: int, height: int, boundary: float, level: int):

@@ -9,15 +9,17 @@ source's name and bytes and of the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
 
 The launch plumbing every wrapper shares (`ops/patch_kernels.py`,
-`ops/gather_probe.py`, `ops/pose_gn.py`, `ops/sparse_align_gn.py`) is here
-too: `check`, `contiguous` and `frame_contiguous` test an input against
-what the kernel takes (the wrappers convert nothing), `stream` is the current raw stream, and `launch` calls a
-launcher, raises on its cudaError_t and adds one to the wrapper module's
-launch count.  So is the dispatch every custom op shares
-(`ops/patch_kernels.py`, `core/pose_opt.py`): `cfg_use_pallas` and
-`use_kernels` read the knob, `on_card` decides kernel or plain version,
-`call_op` calls an op's body directly outside a `torch.func` transform, and
-`batch_first` moves a vmap rule's argument's batch dimension first.
+`ops/gather_probe.py`, `ops/pose_gn.py`, `ops/sparse_align_gn.py`,
+`ops/camera_kernels.py`) is here too: `check`, `contiguous` and
+`frame_contiguous` test an input against what the kernel takes (the
+wrappers convert nothing), `stream` is the current raw stream, and `launch`
+calls a launcher, raises on its cudaError_t and adds one to the wrapper
+module's launch count.  So is the dispatch every custom op shares
+(`ops/patch_kernels.py`, `core/pose_opt.py`, `geometry/camera.py`):
+`cfg_use_pallas` and `use_kernels` read the knob, `on_card` decides kernel
+or plain version, `call_op` calls an op's body directly outside a
+`torch.func` transform, and `batch_first` moves a vmap rule's argument's
+batch dimension first.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ _SIGNATURES = {
     "launch_sparse_align": [_P, _LL, _LL, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
                             _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                             _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    "launch_camera_cam2world": [_P, _LL, _P, _P, _P, _P, _P, _P, _P],
+    "launch_camera_world2cam": [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 # queries a source may define beside its launchers (each returns a
 # cudaError_t): the ICLK layout and its residency on the card

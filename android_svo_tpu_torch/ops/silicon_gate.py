@@ -13,14 +13,16 @@ equal the B single launches bit for bit.  `pose_inputs`,
 `projection_gap_px` and `compare_pose` hold `pose_gn_kernel` against
 `core/pose_opt.py::optimize_pose_plain` on the same inputs; `align_inputs`,
 `compare_align` and `plain_align_trace` hold `sparse_align_kernel` against
-the plain loop of `ops/sparse_align.py`.  `path_gate` runs every one of
+the plain loop of `ops/sparse_align.py`; `camera_calls` and
+`camera_failures` hold the radtan camera's kernels against
+`PinholeCamera`'s plain versions.  `path_gate` runs every one of
 these checks at the tracking path's shapes, with each call's dispatch
 (ATen ops, device activities) and reads back; the card tests
 (`tests/test_torch_cuda.py`) and `chip_smoke.py`'s phase 3 both run it, and
 the card tests hold every kernel to these bounds at more shapes.
 `tools/patch_ab.py` and `chip_smoke.py`'s phase 11 take their inputs from
-here.  `pose_bound`, `align_bound` and `probe_bound` give the least time of
-the kernels `svo_bench/reference/bounds.py` leaves out.
+here.  `pose_bound`, `align_bound`, `probe_bound` and `camera_bound` give
+the least time of the kernels `svo_bench/reference/bounds.py` leaves out.
 """
 
 from __future__ import annotations
@@ -650,6 +652,146 @@ def first_tie_level(rec, levels) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the radtan camera: camera_cam2world_kernel and camera_world2cam_kernel
+# against PinholeCamera's plain versions
+# ---------------------------------------------------------------------------
+
+# EuRoC cam0's coefficients (the cells' camera) and a strongly distorted set
+# with every coefficient set (8 Newton steps still undistort its corners to
+# 0.03 px of the round trip)
+CAMERA_COEFFS = {"euroc": ALIGN_CAMERAS["radtan"][3],
+                 "strong": {"k1": -0.36, "k2": 0.14, "p1": 0.002,
+                            "p2": -0.0017, "k3": -0.02}}
+CAMERA_ROWS = (1, 912, 2048, 8192)  # one row, the grid's rows, seeds,
+                                    # the landmarks
+CAMERA_BATCH = (11, 912)          # the batched step's sequences and rows
+
+
+def radtan_camera(coeffs: str = "euroc", device="cuda"):
+    """EuRoC cam0's 752x480 intrinsics with the `CAMERA_COEFFS` set."""
+    from android_svo_tpu_torch.geometry.camera import PinholeCamera
+    w, h, (fx, fy, cx, cy), _ = ALIGN_CAMERAS["radtan"]
+    return PinholeCamera.create(w, h, fx, fy, cx, cy,
+                                **CAMERA_COEFFS[coeffs], device=device)
+
+
+def camera_pixels(cam, n: int, seed: int, device="cuda") -> torch.Tensor:
+    """n pixels (n, 2): the four image corners, where r^2 is largest, then
+    uniform draws over the image from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    w, h = cam.width - 0.5, cam.height - 0.5
+    corners = torch.tensor([[-0.5, -0.5], [w, -0.5], [-0.5, h], [w, h]])
+    px = torch.rand(n, 2, generator=g) * torch.tensor([w + 0.5, h + 0.5]) \
+        - 0.5
+    return torch.cat([corners, px])[:n].to(device)
+
+
+def camera_points(cam, n: int, seed: int, device="cuda") -> torch.Tensor:
+    """n points (n, 3) in front of the camera, 0.5-10 units deep along the
+    rays of `camera_pixels`."""
+    g = torch.Generator().manual_seed(seed + 1)
+    depth = (0.5 + 9.5 * torch.rand(n, 1, generator=g)).to(device)
+    return cam.cam2world_plain(camera_pixels(cam, n, seed, device)) * depth
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two float32 tensors in units in the last place
+    (NaNs where both have them left out)."""
+    both = ~(torch.isnan(a) & torch.isnan(b))
+    ia, ib = (t[both].view(torch.int32).to(torch.int64) for t in (a, b))
+    ia, ib = (torch.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def camera_calls(cam, n: int, seed: int, device="cuda") -> dict:
+    """form -> (kernel call, plain call, ulps allowed) of every form on n
+    rows: cam2world on (n, 2) and on (K, M, 2); world2cam on (n, 3) and on
+    (B, N, 3); world2cam_uv on (n, 2).  Pixels bit for bit; the bearings
+    within one ulp (the norm's 3-term sum)."""
+    px = camera_pixels(cam, n, seed, device)
+    xyz = camera_points(cam, n, seed, device)
+    uv = xyz[:, :2] / xyz[:, 2:]
+    k = 8 if n % 8 == 0 else 1
+    return {
+        "cam2world": (lambda: cam.cam2world(px),
+                      lambda: cam.cam2world_plain(px), 1),
+        "cam2world (K, M, 2)": (
+            lambda: cam.cam2world(px.reshape(k, -1, 2)),
+            lambda: cam.cam2world_plain(px.reshape(k, -1, 2)), 1),
+        "world2cam": (lambda: cam.world2cam(xyz),
+                      lambda: cam.world2cam_plain(xyz), 0),
+        "world2cam (B, N, 3)": (
+            lambda: cam.world2cam(xyz.reshape(k, -1, 3)),
+            lambda: cam.world2cam_plain(xyz.reshape(k, -1, 3)), 0),
+        "world2cam_uv": (lambda: cam.world2cam_uv(uv),
+                         lambda: cam.world2cam_uv_plain(uv), 0),
+    }
+
+
+def camera_failures(device="cuda") -> list:
+    """The radtan kernels against the plain versions (`camera_calls`) at
+    EuRoC cam0's and the strong coefficients and `CAMERA_ROWS`, corners
+    included: the plain version's shape, one launch a call; one call one
+    device activity, at most 2 ATen ops, nothing read back; under
+    torch.func.vmap over 11 x 912 rows, one launch a call, each sequence
+    bit for bit its single launch, and the batch on dimension 1 the
+    same."""
+    from android_svo_tpu_torch.ops import camera_kernels as ck
+    failures = []
+    for coeffs in CAMERA_COEFFS:
+        cam = radtan_camera(coeffs, device)
+        for n in CAMERA_ROWS:
+            for form, (kernel, plain, ulps) in camera_calls(
+                    cam, n, n, device).items():
+                what = f"{coeffs}, {n} rows, {form}"
+                before = sum(ck.LAUNCHES.values())
+                got, want = kernel(), plain()
+                if sum(ck.LAUNCHES.values()) - before != 1:
+                    failures.append(f"{what}: not one launch")
+                if got.shape != want.shape:
+                    failures.append(f"{what}: shape {tuple(got.shape)}, "
+                                    f"not {tuple(want.shape)}")
+                    continue
+                gap = ulp_gap(got, want)
+                if not (torch.equal(torch.isnan(got), torch.isnan(want))
+                        and gap <= ulps):
+                    failures.append(f"{what}: {gap} ulps from the plain "
+                                    f"version (allowed {ulps})")
+    cam = radtan_camera("euroc", device)
+    calls = camera_calls(cam, CAMERA_BATCH[1], 0, device)
+    failures += dispatch_failures(
+        {f"dispatch {form}": (fn, 2) for form, (fn, _, _) in calls.items()})
+    for form, (fn, _, _) in calls.items():
+        failures += [f"{form} reads {r}" for r in host_reads(fn)]
+
+    b, n = CAMERA_BATCH
+    px = torch.stack([camera_pixels(cam, n, s, device) for s in range(b)])
+    xyz = torch.stack([camera_points(cam, n, s, device) for s in range(b)])
+    uv = xyz[..., :2] / xyz[..., 2:]
+    vm = torch.func.vmap
+    for form, fn, x in (("cam2world", cam.cam2world, px),
+                        ("world2cam", cam.world2cam, xyz),
+                        ("world2cam_uv", cam.world2cam_uv, uv)):
+        before = sum(ck.LAUNCHES.values())
+        out = vm(fn)(x)
+        if sum(ck.LAUNCHES.values()) - before != 1:
+            failures.append(f"batched {form}: not one launch for {b} "
+                            "sequences")
+        if not all(same_bits(out[i], fn(x[i])) for i in range(b)):
+            failures.append(f"batched {form}: differs from its single "
+                            "launches")
+        if not same_bits(vm(fn, in_dims=1)(x.movedim(0, 1).contiguous()),
+                         out):
+            failures.append(f"batched {form}: the batch on dimension 1 "
+                            "differs")
+        failures += dispatch_failures(
+            {f"batched {form}": (lambda fn=fn, x=x: vm(fn)(x), None)})
+        failures += [f"batched {form} reads {r}"
+                     for r in host_reads(lambda fn=fn, x=x: vm(fn)(x))]
+    return failures
+
+
+# ---------------------------------------------------------------------------
 # every kernel at the tracking path's shapes, in one call
 # ---------------------------------------------------------------------------
 
@@ -993,9 +1135,10 @@ def path_gate(device="cuda") -> dict:
     forms and each form's dispatch (`dispatch_cases`) at `PATH_SHAPES`;
     no ICLK layout spilling at their rows; `run_batched_gate` and
     `batched_extra_failures` at `BATCHED_PATH_SHAPES`; pose GN
-    (`pose_failures`), sparse alignment (`align_failures`) and the gather
-    probe (`probe_failures`).  Returns check -> its failures (empty where
-    it held).  The card tests and `chip_smoke.py` both run it; a new
+    (`pose_failures`), sparse alignment (`align_failures`), the gather
+    probe (`probe_failures`) and the radtan camera
+    (`camera_failures`).  Returns check -> its failures (empty where it
+    held).  The card tests and `chip_smoke.py` both run it; a new
     kernel's check at the path's shapes goes here."""
     out = {}
     for name, (n, h, w) in PATH_SHAPES.items():
@@ -1023,6 +1166,7 @@ def path_gate(device="cuda") -> dict:
     out["pose_gn_kernel"] = pose_failures(device)
     out["sparse_align_kernel"] = align_failures(device)
     out["probe_patches_kernel"] = probe_failures(device)
+    out["camera_kernels"] = camera_failures(device)
     return out
 
 
@@ -1092,3 +1236,16 @@ def probe_bound(img: torch.Tensor, uv: torch.Tensor, variant: str) -> tuple:
     n = uv.shape[0]
     return least_ms(int(mask.sum()) * 4 + n * 8 + n * gp.P * gp.P * 4,
                     n * gp.P * gp.P * 11)
+
+
+def camera_bound(rows: int, form: str) -> tuple:
+    """Least time of one radtan camera call on `rows` rows (`least_ms`):
+    cam2world reads 8 bytes and writes 12 a row, ~228 fp32 operations (the
+    intrinsics 4, eight Newton steps of 27, the norm and the division 8);
+    world2cam reads 12 and writes 8, ~32 operations (project2d 2, distort
+    26, the intrinsics 4); world2cam_uv reads 8, ~30.  36 bytes of
+    camera."""
+    read, flops = {"cam2world": (8, 228), "world2cam": (12, 32),
+                   "world2cam_uv": (8, 30)}[form]
+    write = 12 if form == "cam2world" else 8
+    return least_ms(rows * (read + write) + 36, rows * flops)

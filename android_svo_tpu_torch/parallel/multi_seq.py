@@ -40,6 +40,7 @@ from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import pipeline
 from android_svo_tpu_torch.core import state as st
 from android_svo_tpu_torch.core.state import init_batched_state  # noqa: F401
+from android_svo_tpu_torch.geometry.camera import for_config
 from android_svo_tpu_torch.geometry.se3 import SE3
 from android_svo_tpu_torch.ops.sparse_align import sparse_img_align
 from android_svo_tpu_torch.parallel import mesh as mesh_lib
@@ -50,7 +51,9 @@ def make_batched_track(cfg: SVOConfig, cam, dims):
     """Build `track_b(vo_b, imgs) -> (vo_b, out_b)`: the tracking step over
     a batched state and a (B, H, W) stack of frames, one per sequence; every
     value of `out_b` has a leading batch axis (`T_cw` an SE3 of (B, 4) and
-    (B, 3))."""
+    (B, 3)).  The step holds `cam` as `cfg.use_pallas` has it
+    (`geometry.camera.for_config`)."""
+    cam = for_config(cam, cfg)
 
     def step(vo_b: st.VOState, imgs: torch.Tensor):
         batch = imgs.shape[0]

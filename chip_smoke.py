@@ -8,7 +8,8 @@ to end and the kernel launches each makes.
 It times nothing.  A kernel is timed alone by `tools/patch_ab.py` and
 `tools/probe_ab.py`, and in a cell by the benchmark's traced run
 (`python3 -m svo_bench.run --trace 1`); the card tests
-(`python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts=""`)
+(`python -m pytest tests/test_torch_cuda.py tests/test_torch_camera_kernel.py
+-q --noconftest -o addopts=""`)
 hold each kernel at more shapes and edge cases.
 
 Phases (any failed check exits non-zero; the last line is printed only when
@@ -26,7 +27,10 @@ every phase passed):
                sparse_align_kernel on the radtan and pinhole cameras, GN and
                LM, and each batched on 11 frames, against their plain
                versions, reading nothing back; the gather probe against its
-               plain version and interp.extract_patches at 2,048 features.
+               plain version and interp.extract_patches at 2,048 features;
+               the radtan camera's two kernels against PinholeCamera's
+               plain versions (pixels bit for bit) at 1-8,192 rows and
+               batched at 11 x 912.
   4. main    — FrameHandler at 640x480, SVOConfig(init_min_disparity=20,
                max_n_kfs=8, loba_n_iter=0), 40 frames of the bench orbit
                rendered on the card: bootstrap, tracking, keyframes.  Every
@@ -112,13 +116,17 @@ every phase passed):
                the dump is one launch.
 Each path (4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
 plain run, 11) runs with the launch counts set to 0 just before it and read
-just after; on a tracking path those of the patch kernels and of
-pose_gn_kernel and sparse_align_kernel, all 0 on each plain run.  The
-tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every patch kernel but
-dump_windows_kernel, which only the public dump_windows runs (8b also not
-align_iclk_kernel); there its count must stay 0.  They launch
-pose_gn_kernel and sparse_align_kernel once a tracked frame (4, 6, 8a, 8b,
-9) and once a batched step (10b; 7, which relocalizes, at least once).
+just after; on a tracking path those of the patch kernels, of
+pose_gn_kernel and sparse_align_kernel and of the camera kernels, all 0 on
+each plain run.  The tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every
+patch kernel but dump_windows_kernel, which only the public dump_windows
+runs (8b also not align_iclk_kernel); there its count must stay 0.  They
+launch pose_gn_kernel and sparse_align_kernel once a tracked frame (4, 6,
+8a, 8b, 9) and once a batched step (10b; 7, which relocalizes, at least
+once).  The radtan paths (9, 10b) launch the camera kernels 7 + 15 times a
+tracked frame or batched step without a keyframe, and 10b as many a
+batched step as one sequence's step (where its keyframe decision is the
+batch's); the pinhole paths (4-8) never.
 Prints one JSON line of results per path and ends with one JSON line
 `{"ok": true, "device": {...}}`.
 """
@@ -140,6 +148,10 @@ import numpy as np
 DUMP = "dump_windows_kernel"
 POSE = "pose_gn_kernel"
 ALIGN = "sparse_align_kernel"
+# the radtan camera's kernels: only a camera with distortion launches them
+# (phases 9 and 10b), 7 cam2world and 15 world2cam / world2cam_uv calls a
+# tracked frame or batched step without a keyframe
+CAMERA = {"camera_cam2world_kernel": 7, "camera_world2cam_kernel": 15}
 N_FRAMES = 40
 N_ORBIT = 148            # bench.py's full orbit (make_poses(148, 0.02))
 SCAN_START, SCAN_LEN = 40, 24
@@ -175,11 +187,13 @@ def require(cond, msg):
         raise CheckFailed(msg)
 
 
-def require_path_launches(launches, what, absent=()):
+def require_path_launches(launches, what, absent=(), radtan=False):
     """A tracking path's launch counts: every patch kernel launched but
-    those in `absent` and the window dump, which must not launch."""
+    those in `absent` and the window dump, which must not launch; the
+    camera kernels launched on a `radtan` camera's path, else not."""
     for name, cnt in launches.items():
-        if name == DUMP or name in absent:
+        if name == DUMP or name in absent or (name in CAMERA
+                                              and not radtan):
             require(cnt == 0, f"{name} launched on the {what} path")
         else:
             require(cnt > 0, f"{name} was not launched on the {what} path")
@@ -187,22 +201,35 @@ def require_path_launches(launches, what, absent=()):
 
 def reset_launches():
     """Set the tracking path's launch counts to 0: the patch kernels',
-    pose_gn_kernel's and sparse_align_kernel's."""
+    pose_gn_kernel's, sparse_align_kernel's and the camera kernels'."""
+    from android_svo_tpu_torch.ops import camera_kernels as ck
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import pose_gn as pg
     from android_svo_tpu_torch.ops import sparse_align_gn as sg
     pk.reset_launch_counts()
     pg.reset_launch_counts()
     sg.reset_launch_counts()
+    ck.reset_launch_counts()
 
 
 def path_launches() -> dict:
     """The tracking path's launch counts: the patch kernels',
-    pose_gn_kernel's and sparse_align_kernel's."""
+    pose_gn_kernel's, sparse_align_kernel's and the camera kernels'."""
+    from android_svo_tpu_torch.ops import camera_kernels as ck
     from android_svo_tpu_torch.ops import patch_kernels as pk
     from android_svo_tpu_torch.ops import pose_gn as pg
     from android_svo_tpu_torch.ops import sparse_align_gn as sg
-    return {**pk.LAUNCHES, **pg.LAUNCHES, **sg.LAUNCHES}
+    return {**pk.LAUNCHES, **pg.LAUNCHES, **sg.LAUNCHES, **ck.LAUNCHES}
+
+
+def require_camera_per_unit(per_unit, what):
+    """The camera kernels' launches of each tracked frame or batched step
+    without a keyframe in `per_unit` ({unit: launches}): `CAMERA`."""
+    require(per_unit, f"no {what} unit without a keyframe")
+    for unit, launches in per_unit.items():
+        got = {n: launches[n] for n in CAMERA}
+        require(got == CAMERA, f"{what} {unit}: camera kernels launched "
+                f"{got}, not {CAMERA}")
 
 
 def require_pose_per_frame(launches, n_units, what, unit="tracked frame"):
@@ -381,13 +408,18 @@ def dataset_phase(dev, label, workdir):
     frames, est, gt, tail_a = [], [], [], []
     n_fail = n_tracked = n_kf_added = 0
     cube_in_front = []          # (frame written, all cube corners ahead)
-    order = []
+    order, camera_frames = [], {}
     reset_launches()
     for i, frame in feeder:
         order.append(i)
         frames.append(frame)
         was_default = handler.stage == fh.STAGE_DEFAULT_FRAME
+        before = path_launches()
         res = handler.add_image(frame, seq.timestamps[i])
+        if was_default and res.result == pipeline.RES_NO_KEYFRAME:
+            after = path_launches()
+            camera_frames[f"frame {i}"] = {n: after[n] - before[n]
+                                           for n in CAMERA}
         if handler.stage == fh.STAGE_DEFAULT_FRAME:
             t_wc = res.t_wc if res.t_wc is not None else res.T_cw.inverse().t
             est.append(t_wc.cpu().numpy().astype(np.float64))
@@ -433,8 +465,9 @@ def dataset_phase(dev, label, workdir):
             "dataset path did not reach DEFAULT")
     require(n_fail == 0, f"dataset path: {n_fail} tracking failures")
     require(n_ba >= 1, "dataset path never ran local BA")
-    require_path_launches(launches, "dataset")
+    require_path_launches(launches, "dataset", radtan=True)
     require_pose_per_frame(launches, n_tracked, "dataset")
+    require_camera_per_unit(camera_frames, "dataset")
     require(math.isfinite(ate) and ate <= 0.02,
             f"dataset path ATE {ate} > 0.02")
     # every decoded frame, kept to the end: exact (decode, and no pinned
@@ -600,8 +633,10 @@ def batched_phase(dev, label, workdir):
             f"batched ATE over 0.02: {ates}")
     require(mixed >= 1, "no step where some but not all sequences took a "
             "keyframe")
-    require_path_launches(launches_b, "batched")
+    require_path_launches(launches_b, "batched", radtan=True)
     require_pose_per_frame(launches_b, N_BATCH, "batched", "batched step")
+    require_camera_per_unit({f"step {k}": per_step[k] for k in range(N_BATCH)
+                             if not kf[k].any()}, "batched")
 
     # the single step of each sequence over the first N_SINGLE frames
     track = pipeline.make_track_frame(cfg, cam, dims)
@@ -621,7 +656,11 @@ def batched_phase(dev, label, workdir):
                     f"step {k}, sequence {b}: single result "
                     f"{int(o['result'])} != batched {int(codes[k, b])}")
             # every kernel launches per batched step what one step does
+            # (the camera's where this sequence's keyframe decision is the
+            # batch's: the keyframe insertion calls cam2world)
             for n, cnt in got.items():
+                if n in CAMERA and bool(kf[k, b]) != bool(kf[k].any()):
+                    continue
                 require(per_step[k][n] == cnt,
                         f"step {k}: {n} launched {per_step[k][n]} times "
                         f"batched, sequence {b} alone {cnt}")
