@@ -1,6 +1,8 @@
 """Typed configuration for the PyTorch port — a field-for-field copy of
 `android_svo_tpu.config.SVOConfig` (same names, defaults and meaning; the
-port keeps its own copy so it never imports the JAX package).
+port keeps its own copy so it never imports the JAX package), and the
+port's own fields after them (`PORT_FIELDS`), whose defaults keep the JAX
+package's behaviour.
 
 `use_pallas` keeps its name: True means the hand-written CUDA kernels for
 CUDA tensors and the plain PyTorch versions for CPU tensors; False means the
@@ -11,6 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+# fields the JAX package's SVOConfig lacks, in their order at the end
+PORT_FIELDS = ("loba_fix_neighbour_kfs",)
 
 
 @dataclass(frozen=True)
@@ -115,6 +121,13 @@ class SVOConfig:
     # ---- numerics / dispatch ---------------------------------------------------------
     dtype: str = "float32"
     use_pallas: bool = True             # hand-written kernels on CUDA tensors
+
+    # ---- the port's own fields (PORT_FIELDS) ------------------------------------------
+    loba_fix_neighbour_kfs: bool = False    # local BA as upstream SVO's
+                                            # ba::localBA: the landmarks
+                                            # the core keyframes see, with
+                                            # every other keyframe that sees
+                                            # them as a fixed camera
 
     def replace(self, **kw) -> "SVOConfig":
         return dataclasses.replace(self, **kw)

@@ -174,6 +174,20 @@ def init_map_from_bootstrap(vo: st.VOState, boot, ref_pyr, cur_pyr,
                       frame_id=torch.tensor(2, dtype=i32, device=dev))
 
 
+def _second_anchor(kf_valid, core):
+    """While no live keyframe lies outside the core window, the fixed
+    neighbours hold nothing and the one fixed core camera leaves the scale
+    free, which fp32 rounding then moves through the 1e-6 damping: the
+    second farthest live core camera is fixed too (two fixed cameras hold
+    all 7 degrees of freedom).  `core` is in `select_core_keyframes`'
+    order, live slots nearest first; a (NC,) mask, all False once a live
+    keyframe lies outside."""
+    n_live = kf_valid[core].sum()
+    early = kf_valid.sum() <= n_live
+    ranks = torch.arange(core.shape[0], device=core.device)
+    return early & (ranks == n_live - 2)
+
+
 class FrameHandler:
     """Host-side VO stage machine: one `add_image` call = one processed
     frame.
@@ -345,26 +359,35 @@ class FrameHandler:
         The landmark arena is compacted to `loba_point_budget` live
         landmarks (seen by at least two keyframes) before the Schur
         einsums; a frame-rotating offset round-robins which ones are
-        refined when more are live than the budget.  The newest keyframe is
-        the current frame, so its refined pose is propagated into `last`.
-        No value is read back to the host."""
+        refined when more are live than the budget.  With
+        `loba_fix_neighbour_kfs` only landmarks a core keyframe sees are
+        candidates, and BA holds them to every live keyframe that sees them
+        (upstream SVO's `ba::localBA`).  The newest keyframe is the current
+        frame, so its refined pose is propagated into `last`.  The core
+        choice and the compaction span `local_ba.select`.  No value is read
+        back to the host."""
         cfg = self.cfg
         n_core = min(cfg.loba_num_kfs + 1, cfg.max_n_kfs)
-        core, fixed = select_core_keyframes(
-            vo.kfs.q_kw, vo.kfs.t_kw, vo.kfs.valid, vo.last.T_fw, n_core)
         pts = vo.points
-        pvalid = pts.valid & (pts.obs_count >= 2)
-        P = pvalid.shape[0]
-        offset = (vo.frame_id.to(torch.int64) * 263) % P
-        ar = torch.arange(P, device=pvalid.device)
-        idx = compact(pvalid[(ar + offset) % P],
-                      min(cfg.loba_point_budget, P))
-        sel = idx >= 0
-        idxc = (torch.clamp(idx, min=0) + offset) % P
+        with profiling.span("local_ba.select"):
+            core, fixed = select_core_keyframes(
+                vo.kfs.q_kw, vo.kfs.t_kw, vo.kfs.valid, vo.last.T_fw, n_core)
+            pvalid = pts.valid & (pts.obs_count >= 2)
+            if cfg.loba_fix_neighbour_kfs:
+                seen = pts.obs_kf[:, :, None] == core[None, None, :]
+                pvalid = pvalid & seen.any(-1).any(-1)
+                fixed = fixed | _second_anchor(vo.kfs.valid, core)
+            P = pvalid.shape[0]
+            offset = (vo.frame_id.to(torch.int64) * 263) % P
+            ar = torch.arange(P, device=pvalid.device)
+            idx = compact(pvalid[(ar + offset) % P],
+                          min(cfg.loba_point_budget, P))
+            sel = idx >= 0
+            idxc = (torch.clamp(idx, min=0) + offset) % P
         q2, t2, pos2_b, _ = local_ba(
             pts.pos[idxc], sel, pts.obs_kf[idxc], pts.obs_f[idxc],
             vo.kfs.q_kw, vo.kfs.t_kw, core, fixed,
-            self.cam.errorMultiplier2(), cfg)
+            self.cam.errorMultiplier2(), cfg, kf_valid=vo.kfs.valid)
         pos2 = set_rows(pts.pos, torch.where(sel, idxc,
                                              torch.full_like(idxc, P)),
                         pos2_b)

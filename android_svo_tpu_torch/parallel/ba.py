@@ -10,10 +10,21 @@ camera system is a sum over the landmark axis, then one dense (6 NC)^2
 solve:
     S = H_cc - H_cp H_pp^-1 H_pc;   rhs = -b_c + H_cp H_pp^-1 b_p
     S dx_c = rhs;   dx_p = -H_pp^-1 (b_p + H_pc dx_c)
-One iteration is three parts: the per-landmark partial sums, the
-replicated reduced solve, and the landmarks' back-substitution; sharded,
-the partial sums are summed over the landmark shards in between.
+One iteration is three parts (spans `local_ba.partials`, `local_ba.solve`
+and `local_ba.update`): the per-landmark partial sums, the replicated
+reduced solve, and the landmarks' back-substitution; sharded, the partial
+sums are summed over the landmark shards in between.  Counter
+`local_ba_iters` adds `loba_n_iter` a call.
 The einsums run in full fp32 (the package disables TF32 at import).
+
+With `cfg.loba_fix_neighbour_kfs` the residuals follow upstream SVO's
+`ba::localBA`: every observation of a landmark made by a valid keyframe
+enters, and a keyframe outside the core window enters as a fixed camera.
+Its observations add to the landmark blocks (U_p, b_p) and to chi2 and,
+the core one-hot being zero there, to no camera block, so the landmarks
+stay tied to cameras that do not move, which holds the monocular scale.
+Without it (the JAX package's rule) only the core keyframes' observations
+enter, and the one fixed core camera leaves the scale free.
 """
 
 from __future__ import annotations
@@ -25,13 +36,14 @@ from android_svo_tpu_torch.geometry import robust
 from android_svo_tpu_torch.geometry.camera import project2d
 from android_svo_tpu_torch.geometry.linsolve import inv_spd, solve_spd_loop
 from android_svo_tpu_torch.geometry.se3 import SE3, hat
+from android_svo_tpu_torch.utils import profiling
 
 
 def local_ba(pos: torch.Tensor, point_valid: torch.Tensor,
              obs_kf: torch.Tensor, obs_f: torch.Tensor,
              q_kw: torch.Tensor, t_kw: torch.Tensor,
              core_slots: torch.Tensor, fixed: torch.Tensor,
-             focal, cfg: SVOConfig):
+             focal, cfg: SVOConfig, kf_valid: torch.Tensor | None = None):
     """Jointly refine core keyframe poses and landmark positions.
 
     Args:
@@ -43,33 +55,46 @@ def local_ba(pos: torch.Tensor, point_valid: torch.Tensor,
       core_slots: (NC,) keyframe slots being optimised.
       fixed: (NC,) gauge mask — fixed cameras receive no update.
       focal: focal length for the Huber width conversion.
+      kf_valid: (K,) live keyframe slots; with `cfg.loba_fix_neighbour_kfs`
+        the observations of the others are left out (None: every slot).
 
     Returns (q_kw', t_kw', pos', chi2) — poses updated at core_slots only.
     """
     return _run_ba(pos, point_valid, obs_kf, obs_f, q_kw, t_kw, core_slots,
-                   fixed, focal, cfg, reduce=None)
+                   fixed, focal, cfg, reduce=None, kf_valid=kf_valid)
 
 
 def _run_ba(pos, point_valid, obs_kf, obs_f, q_kw, t_kw, core_slots, fixed,
-            focal, cfg: SVOConfig, reduce):
+            focal, cfg: SVOConfig, reduce, kf_valid=None):
     """The GN loop; `reduce` (None on one device) sums the per-landmark
     partial sums over the landmark shards, once per iteration."""
     huber_width = cfg.loba_robust_huber_width / focal
     core_slots = core_slots.to(torch.int64)
     is_core = obs_kf[:, :, None] == core_slots[None, None, :]  # (P,O,NC)
-    in_core = torch.any(is_core, dim=-1) & (obs_kf >= 0)
-    obs_ok = in_core & point_valid[:, None]
+    if cfg.loba_fix_neighbour_kfs:
+        # every live keyframe's observation; those outside the core are
+        # fixed cameras (Ehot is zero there)
+        seen = obs_kf >= 0
+        if kf_valid is not None:
+            seen = seen & kf_valid[torch.clamp(obs_kf, min=0).to(torch.int64)]
+    else:
+        seen = torch.any(is_core, dim=-1) & (obs_kf >= 0)
+    obs_ok = seen & point_valid[:, None]
     Ehot = is_core.to(pos.dtype)
     chi2 = None
+    profiling.count("local_ba_iters", cfg.loba_n_iter)
     for _ in range(cfg.loba_n_iter):
-        sums, local = _ba_partials(pos, obs_f, obs_ok, Ehot, q_kw, t_kw,
-                                   obs_kf, huber_width)
-        if reduce is not None:
-            sums = reduce(sums)
+        with profiling.span("local_ba.partials"):
+            sums, local = _ba_partials(pos, obs_f, obs_ok, Ehot, q_kw, t_kw,
+                                       obs_kf, huber_width)
+            if reduce is not None:
+                sums = reduce(sums)
         Hcc, bc, S_red, rhs_red, chi2 = sums
-        dxc = _ba_solve(Hcc, bc, S_red, rhs_red, fixed)
-        q_kw, t_kw, pos = _ba_update(pos, point_valid, local, dxc, q_kw,
-                                     t_kw, core_slots)
+        with profiling.span("local_ba.solve"):
+            dxc = _ba_solve(Hcc, bc, S_red, rhs_red, fixed)
+        with profiling.span("local_ba.update"):
+            q_kw, t_kw, pos = _ba_update(pos, point_valid, local, dxc, q_kw,
+                                         t_kw, core_slots)
     return q_kw, t_kw, pos, chi2
 
 

@@ -17,6 +17,11 @@ number).  The spans the program opens:
   fused_track_dispatch, local_ba
                                the handler's tracking call and its local BA
                                dispatch (`core/frame_handler.py`)
+  local_ba.select, local_ba.partials, local_ba.solve, local_ba.update
+                               inside `local_ba`: the core choice and the
+                               landmarks' compaction, then each GN
+                               iteration's partial sums, reduced solve and
+                               update (`parallel/ba.py`)
   host_read.<site>             one blocking device-to-host read
                                (`host_read`): align_stop, align_active
                                (the plain alignment loop, on the CPU),
@@ -38,8 +43,9 @@ number).  The spans the program opens:
 (every read through `host_read`), `align_iters` (the plain sparse
 alignment loop's Gauss-Newton iterations), `align_launches` (launches of
 `sparse_align_kernel`, which runs the loop on the card: one a frame or a
-batched step) and `align1d_iters` (the 1D alignment's iterations, `n_iter`
-a call); `unit_counts` keeps each unit's share.  Counters
+batched step), `align1d_iters` (the 1D alignment's iterations, `n_iter`
+a call) and `local_ba_iters` (local BA's GN iterations, `loba_n_iter` a
+call); `unit_counts` keeps each unit's share.  Counters
 count only while a monitor is installed, and the monitor's own reads are
 not among them.
 

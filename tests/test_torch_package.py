@@ -16,7 +16,7 @@ import torch
 
 from android_svo_tpu.config import SVOConfig as JConfig
 
-from android_svo_tpu_torch.config import SVOConfig
+from android_svo_tpu_torch.config import PORT_FIELDS, SVOConfig
 from android_svo_tpu_torch.core import state as st
 
 # The tensors here are small and the suite's workers share the machine's
@@ -142,9 +142,13 @@ def test_package_inits_bind_the_jax_names(path):
 
 
 def test_config_matches_jax_field_by_field():
+    """Every JAX field, in its order, with its default and type; then the
+    port's own fields (`PORT_FIELDS`), whose defaults keep the JAX
+    package's behaviour."""
     jf = {f.name: f for f in dataclasses.fields(JConfig)}
     pf = {f.name: f for f in dataclasses.fields(SVOConfig)}
-    assert list(jf) == list(pf)
+    assert list(pf) == list(jf) + list(PORT_FIELDS)
+    assert SVOConfig().loba_fix_neighbour_kfs is False
     for name in jf:
         assert jf[name].default == pf[name].default, name
         assert jf[name].type == pf[name].type, name
@@ -285,7 +289,9 @@ def test_state_keys_match_jax_layout():
     """The numpy dict carries exactly the JAX VOState's field paths."""
     from android_svo_tpu.core import state as jst
     cfg = SVOConfig(max_n_kfs=2, max_points=16, max_seeds=8)
-    jvo = jst.init_state(JConfig(**dataclasses.asdict(cfg)), 64, 48)
+    jvo = jst.init_state(JConfig(**{
+        k: v for k, v in dataclasses.asdict(cfg).items()
+        if k not in PORT_FIELDS}), 64, 48)
     keys = set()
     for f in dataclasses.fields(jvo):
         val = getattr(jvo, f.name)

@@ -262,6 +262,67 @@ def test_the_1d_loop_adds_no_read(tracked_edgelets):
         assert mon.unit_counts[f["unit"]]["host_reads"] == f["reads"]
 
 
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["fixed_neighbours", "core_only"])
+def tracked_loba(request):
+    """Local BA (2 GN iterations) after every keyframe, with and without
+    its fixed neighbour keyframes, over 14 tracked frames of a sweep that
+    inserts a keyframe every few frames, the recorder on."""
+    cfg = dataclasses.replace(CFG, loba_n_iter=2,
+                              loba_fix_neighbour_kfs=request.param)
+    cam = synthetic.default_camera(W, H, device="cpu")
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024,
+                                 device="cpu")
+    mon = profiling.install()
+    try:
+        handler = fh.FrameHandler(cam, cfg, device="cpu")
+        for i in [0] + list(range(4, 19)):
+            handler.add_image(synthetic.render(tex, cam, synthetic.lookdown_pose(
+                0.05 * i, 0.015 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i,
+                                            0.004 * i), device="cpu")))
+    finally:
+        profiling.uninstall()
+    assert handler.n_local_ba >= 1
+    return mon, handler, cfg
+
+
+def test_local_ba_spans_nest_in_local_ba(tracked_loba):
+    """Each `local_ba` span holds the core choice and compaction
+    (`local_ba.select`), then each GN iteration's partial sums, solve and
+    update, in that order; no `local_ba.*` span opens outside one."""
+    mon, handler, cfg = tracked_loba
+    spans = mon.spans()
+    calls = [i for i, s in enumerate(spans) if s.name == "local_ba"]
+    assert len(calls) == handler.n_local_ba
+    for i in calls:
+        kids = [s.name for s in spans if s.parent == i]
+        assert kids == ["local_ba.select"] + [
+            "local_ba.partials", "local_ba.solve",
+            "local_ba.update"] * cfg.loba_n_iter
+        assert "tot_time" in _ancestors(spans, i)
+    inner = [i for i, s in enumerate(spans) if s.name.startswith("local_ba.")]
+    assert len(inner) == len(calls) * (1 + 3 * cfg.loba_n_iter)
+    assert all(spans[spans[i].parent].name == "local_ba" for i in inner)
+
+
+def test_local_ba_iters_count_the_gn_iterations(tracked_loba):
+    """`local_ba_iters` grows by `loba_n_iter` a local BA call, in the unit
+    (frame) that dispatched it, with no read of its own."""
+    mon, handler, cfg = tracked_loba
+    assert mon.counters["local_ba_iters"] == (cfg.loba_n_iter
+                                              * handler.n_local_ba)
+    spans = mon.spans()
+    ba_units = {s.unit for s in spans if s.name == "local_ba"}
+    for u, counts in enumerate(mon.unit_counts):
+        want = cfg.loba_n_iter if u in ba_units else 0
+        assert counts.get("local_ba_iters", 0) == want, u
+        if u in ba_units:
+            reads = [s for s in spans if s.unit == u
+                     and s.name.startswith("host_read")]
+            assert not any("local_ba" in _ancestors(spans, spans.index(r))
+                           for r in reads)
+
+
 def test_bootstrap_and_builds_are_set_up_spans(tracked):
     mon, _, _ = tracked
     boot = [s for s in mon.spans() if s.name == "bootstrap"]
