@@ -21,8 +21,7 @@ import torch.utils._pytree as _pytree
 from android_svo_tpu_torch.config import SVOConfig
 from android_svo_tpu_torch.core import depth_filter as df
 from android_svo_tpu_torch.core import state as st
-from android_svo_tpu_torch.core.point_opt import (optimize_points,
-                                                  select_points_for_optim)
+from android_svo_tpu_torch.core.point_opt import optimize_structure
 from android_svo_tpu_torch.core.pose_opt import optimize_pose
 from android_svo_tpu_torch.core.reprojector import (_kf_cam_pos,
                                                     _relative_pose,
@@ -437,23 +436,8 @@ def track_map(vo: st.VOState, cur_stack, T_cur_last: SE3, cam,
 
     # STEP 4: structure optimization
     with profiling.span("point_optimizer"):
-        pts = vo.points
-        slots, sel = select_points_for_optim(
-            pts.last_optim, pts.valid & (pts.obs_count >= 2),
-            cfg.structureoptim_max_pts)
-        obs_kf = pts.obs_kf[slots]
-        ks = torch.clamp(obs_kf, min=0).to(torch.int64)
-        obs_ok = (obs_kf >= 0) & vo.kfs.valid[ks]
-        pos_new, _ = optimize_points(
-            pts.pos[slots], vo.kfs.q_kw[ks], vo.kfs.t_kw[ks],
-            pts.obs_f[slots], obs_ok, sel, cfg.structureoptim_n_iter,
-            method=cfg.structureoptim_method)
-        pts = pts.replace(
-            pos=set_rows(pts.pos, slots, torch.where(
-                sel[:, None], pos_new, pts.pos[slots])),
-            last_optim=set_rows(pts.last_optim, slots, torch.where(
-                sel, vo.frame_id, pts.last_optim[slots])))
-        vo = vo.replace(points=pts)
+        vo = vo.replace(points=optimize_structure(vo.points, vo.kfs,
+                                                  vo.frame_id, cfg))
 
     # quality gate
     n_last = torch.sum(vo.last.ftr_valid).to(torch.int32)

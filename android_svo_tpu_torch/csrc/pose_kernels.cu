@@ -1,6 +1,8 @@
-// The tracking step's two Gauss-Newton loops as kernels, CUDA C++ for Hopper
-// (sm_90a): pose_gn_kernel (motion-only pose refinement) and, further down,
-// sparse_align_kernel (sparse image alignment), which shares its helpers.
+// The tracking step's three Gauss-Newton loops as kernels, CUDA C++ for
+// Hopper (sm_90a): pose_gn_kernel (motion-only pose refinement) and, further
+// down, point_gn_kernel (structure-only refinement of the selected
+// landmarks) and sparse_align_kernel (sparse image alignment), which share
+// its helpers.
 //
 // pose_gn_kernel runs the whole of core/pose_opt.py::optimize_pose_plain
 // (Gauss-Newton, or Levenberg-Marquardt, with Tukey weights and trust-region
@@ -187,14 +189,16 @@ __device__ __forceinline__ void block_sum(float* v, float* part, float* tot) {
   __syncthreads();
 }
 
-// linsolve.py _chol_unrolled on the lower triangle h (21 entries).
-__device__ void cholesky(const float* h, float L[6][6]) {
-  for (int j = 0; j < 6; ++j) {
+// linsolve.py _chol_unrolled on the lower triangle h (D (D + 1) / 2
+// entries: 21 for the 6x6 systems, 6 for point_gn_kernel's 3x3).
+template <int D>
+__device__ void cholesky(const float* h, float (&L)[D][D]) {
+  for (int j = 0; j < D; ++j) {
     float s = h[tri(j, j)];
     for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
     L[j][j] = sqrtf(clamp_min(s, kPivotFloor));
     const float inv = 1.0f / L[j][j];
-    for (int i = j + 1; i < 6; ++i) {
+    for (int i = j + 1; i < D; ++i) {
       float t = h[tri(i, j)];
       for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
       L[i][j] = t * inv;
@@ -203,16 +207,17 @@ __device__ void cholesky(const float* h, float L[6][6]) {
 }
 
 // linsolve.py _chol_solve_cols for one column b.
-__device__ void chol_solve(const float L[6][6], const float* b, float* x) {
-  float y[6];
-  for (int i = 0; i < 6; ++i) {
+template <int D>
+__device__ void chol_solve(const float (&L)[D][D], const float* b, float* x) {
+  float y[D];
+  for (int i = 0; i < D; ++i) {
     float s = b[i];
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
     y[i] = s / L[i][i];
   }
-  for (int i = 5; i >= 0; --i) {
+  for (int i = D - 1; i >= 0; --i) {
     float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
+    for (int k = i + 1; k < D; ++k) s = s - L[k][i] * x[k];
     x[i] = s / L[i][i];
   }
 }
@@ -416,6 +421,211 @@ pose_gn_kernel(const float* __restrict__ q0, long long s_q,
     n_inl[b] = (int)tot[kNH + 1];
     chi2_init[b] = c_init;
     chi2_final[b] = tot[kNH];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// point_gn_kernel — the tracking step's structure optimisation (the stage
+// `point_optimizer`, core/point_opt.py::optimize_selected_plain): the
+// selected landmarks' rows gathered from the point arena, every
+// Gauss-Newton (or Levenberg-Marquardt) iteration of each against its
+// observations, and the new arena's pos and last_optim written, in one
+// launch: one 256-thread block per frame, B blocks for a batch.  It
+// replaces no Pallas kernel (the JAX package leaves optimize_points to
+// XLA).  It was added because on the card the eager stage dispatched ~970
+// small ATen launches a frame (the unrolled 3x3 Cholesky, the 2x3
+// Jacobians and the masks of five iterations), ~10 ms of host time a frame
+// with the device idle, for a few microseconds of arithmetic.
+//
+// Bound: latency.  A frame selects structureoptim_max_pts (20) landmarks of
+// max_obs_per_point (8) observations; each refinement is a chain of
+// structureoptim_n_iter (5) dependent steps, each a 3x3 system summed over
+// the observations, its solve and the cost at the candidate.  The bytes are
+// the arena's two arrays copied into the new ones (16 bytes a row, 8,192
+// rows) and ~400 bytes a selected landmark.  What the design does about
+// it:
+//   - every thread copies the arena's rows first, then, after the
+//     barrier, one thread a selected
+//     landmark runs its whole refinement in registers, reading its
+//     observations and their keyframes' poses through L1, and writes its
+//     row.  Landmarks are independent, so nothing is shared and no thread
+//     waits on another;
+//   - each thread sums its landmark's observations in their order, so the
+//     order depends neither on blockIdx nor on B, and a batched launch gives
+//     each frame's single launch bit for bit;
+//   - a landmark that is not selected keeps its row (the copy).
+//
+// It repeats the plain version step by step in float32: the keyframe's pose
+// applied by quat_rotate, project2d of the measured bearing, the z > 1e-2
+// gate, the Jacobian (d project / d xyz) R with R = quat_to_matrix(q),
+// H + mu diag(H) under LM, H + 1e-8 I, geometry/linsolve.py's unrolled
+// Cholesky with its pivot floor, the accept test `selected & chi2_new <
+// chi2`, LM's mu x10 or max(mu / 3, 1e-8).  Only the order of the sums, and
+// the multiply-adds nvcc contracts, differ.  No fast-math flags.
+// ---------------------------------------------------------------------------
+constexpr int kPointThreads = 256;
+
+// One observation of a landmark: its keyframe's pose (q, t), the measured
+// bearing on the unit plane (u, v), and whether it counts (a slot filled,
+// its keyframe live).
+struct PointObs {
+  float q[4], t[3], u, v;
+  bool live;
+};
+
+// One frame's observations and keyframe poses.
+struct PointArena {
+  const int* kf;                  // (P, O) keyframe slots, -1 empty
+  const float* f;                 // (P, O, 3) bearings
+  const float* q;                 // (K, 4) world -> keyframe
+  const float* t;                 // (K, 3)
+  const unsigned char* valid;     // (K,)
+  int O;
+};
+
+__device__ __forceinline__ PointObs point_obs(const PointArena& A,
+                                              long long row, int o) {
+  PointObs ob;
+  const long long r = row * A.O + o;
+  const int kf = A.kf[r];
+  // torch.clamp(obs_kf, min=0): an empty slot reads keyframe 0, unused
+  const int k = kf < 0 ? 0 : kf;
+  ob.live = kf >= 0 && A.valid[k] != 0;
+  for (int i = 0; i < 4; ++i) ob.q[i] = A.q[4LL * k + i];
+  for (int i = 0; i < 3; ++i) ob.t[i] = A.t[3LL * k + i];
+  const float* f = A.f + 3 * r;
+  ob.u = f[0] / f[2];                    // project2d(obs_f)
+  ob.v = f[1] / f[2];
+  return ob;
+}
+
+// The observation's residual at p: the point in the keyframe (z replaced
+// by 1 where the observation does not count, e zero there).
+struct PointRes {
+  float x, y, zs, ex, ey;
+  bool ok;
+};
+
+__device__ __forceinline__ PointRes point_residual(const PointObs& ob,
+                                                   const float* p) {
+  float xyz[3];
+  quat_rotate(ob.q, p, xyz);
+  PointRes r;
+  r.x = xyz[0] + ob.t[0];
+  r.y = xyz[1] + ob.t[1];
+  const float z = xyz[2] + ob.t[2];
+  r.ok = ob.live && z > 1e-2f;
+  r.zs = r.ok ? z : 1.0f;
+  r.ex = r.ok ? r.x / r.zs - ob.u : 0.0f;
+  r.ey = r.ok ? r.y / r.zs - ob.v : 0.0f;
+  return r;
+}
+
+// chi2 at p: the squared residuals summed over the observations in order.
+__device__ float point_cost(const PointArena& A, long long row,
+                            const float* p) {
+  float c = 0.0f;
+  for (int o = 0; o < A.O; ++o) {
+    const PointRes r = point_residual(point_obs(A, row, o), p);
+    c += r.ex * r.ex + r.ey * r.ey;
+  }
+  return c;
+}
+
+// se3.py quat_to_matrix, row-major.
+__device__ __forceinline__ void quat_to_matrix(const float* q, float* m) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  m[0] = 1.0f - 2.0f * (yy + zz);
+  m[1] = 2.0f * (xy - wz);
+  m[2] = 2.0f * (xz + wy);
+  m[3] = 2.0f * (xy + wz);
+  m[4] = 1.0f - 2.0f * (xx + zz);
+  m[5] = 2.0f * (yz - wx);
+  m[6] = 2.0f * (xz - wy);
+  m[7] = 2.0f * (yz + wx);
+  m[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+// Copies n values of one frame's array from src to dst.
+template <typename T>
+__device__ __forceinline__ void copy_rows(const T* __restrict__ src,
+                                          T* __restrict__ dst, long long n) {
+  for (long long i = threadIdx.x; i < n; i += kPointThreads) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kPointThreads)
+point_gn_kernel(const float* __restrict__ pos, long long s_pos,
+                const int* __restrict__ last_optim, long long s_lo,
+                const int* __restrict__ obs_kf, long long s_okf,
+                const float* __restrict__ obs_f, long long s_of,
+                const float* __restrict__ q_kw, long long s_q,
+                const float* __restrict__ t_kw, long long s_t,
+                const unsigned char* __restrict__ kf_valid, long long s_kv,
+                const long long* __restrict__ slots, long long s_sl,
+                const unsigned char* __restrict__ sel, long long s_se,
+                const int* __restrict__ frame_id, long long s_fi, int P,
+                int O, int K, int S, int n_iter, int lm,
+                float* __restrict__ pos_out, int* __restrict__ lo_out) {
+  const long long b = blockIdx.x;
+  const float* pin = pos + b * s_pos;
+  const int* lin = last_optim + b * s_lo;
+  float* pout = pos_out + b * 3LL * P;
+  int* lout = lo_out + b * (long long)P;
+  copy_rows(pin, pout, 3LL * P);
+  copy_rows(lin, lout, P);
+  __syncthreads();
+
+  const PointArena A{obs_kf + b * s_okf, obs_f + b * s_of, q_kw + b * s_q,
+                     t_kw + b * s_t, kf_valid + b * s_kv, O};
+  for (int s = threadIdx.x; s < S; s += kPointThreads) {
+    const long long row = slots[b * s_sl + s];
+    if (!sel[b * s_se + s] || row < 0 || row >= P) continue;
+    float p[3] = {pin[3 * row], pin[3 * row + 1], pin[3 * row + 2]};
+    float c = point_cost(A, row, p);
+    float mu = 0.01f;
+    for (int it = 0; it < n_iter; ++it) {
+      float h[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float g[3] = {0.0f, 0.0f, 0.0f};
+      for (int o = 0; o < O; ++o) {
+        const PointObs ob = point_obs(A, row, o);
+        const PointRes r = point_residual(ob, p);
+        if (!r.ok) continue;                 // J and e are zero there
+        const float zi = 1.0f / r.zs, zi2 = zi * zi;
+        const float a0 = -r.x * zi2, a1 = -r.y * zi2;
+        float R[9], J[2][3];
+        quat_to_matrix(ob.q, R);
+        for (int k = 0; k < 3; ++k) {        // [[zi, 0, a0], [0, zi, a1]] R
+          J[0][k] = zi * R[k] + a0 * R[6 + k];
+          J[1][k] = zi * R[3 + k] + a1 * R[6 + k];
+        }
+        for (int i = 0; i < 3; ++i) {
+          for (int j = 0; j <= i; ++j)
+            h[tri(i, j)] += J[0][i] * J[0][j] + J[1][i] * J[1][j];
+          g[i] += J[0][i] * r.ex + J[1][i] * r.ey;
+        }
+      }
+      for (int i = 0; i < 3; ++i) {
+        if (lm) h[tri(i, i)] = h[tri(i, i)] + mu * h[tri(i, i)];
+        h[tri(i, i)] = h[tri(i, i)] + 1e-8f;
+      }
+      float L[3][3], rhs[3], dx[3];
+      for (int i = 0; i < 3; ++i) rhs[i] = -g[i];
+      cholesky(h, L);
+      chol_solve(L, rhs, dx);
+      const float cand[3] = {p[0] + dx[0], p[1] + dx[1], p[2] + dx[2]};
+      const float c_new = point_cost(A, row, cand);
+      const bool accept = c_new < c;
+      if (accept) {
+        for (int i = 0; i < 3; ++i) p[i] = cand[i];
+        c = c_new;
+      }
+      if (lm) mu = accept ? clamp_min(mu / 3.0f, 1e-8f) : mu * 10.0f;
+    }
+    for (int i = 0; i < 3; ++i) pout[3 * row + i] = p[i];
+    lout[row] = frame_id[b * s_fi];
   }
 }
 
@@ -943,6 +1153,34 @@ extern "C" int launch_pose_gn(const float* q0, long long s_q,
       q0, s_q, t0, s_t, p_w, s_p, f_meas, s_f, level, s_l, valid, s_v, focal,
       s_fc, n, n_iter, thresh, lm, q_out, t_out, inlier, n_inl, cov,
       chi2_init, chi2_final);
+  return (int)cudaGetLastError();
+}
+
+// Runs structure optimisation for B frames: frame i reads each input at
+// pointer + i * its batch stride (0 for an input the frames share): pos
+// (P, 3), last_optim (P,), obs_kf (P, O), obs_f (P, O, 3), q_kw (K, 4),
+// t_kw (K, 3), kf_valid (K,), slots (S,) int64, sel (S,), frame_id (), each
+// contiguous within a frame.  pos_out (B, P, 3) and lo_out (B, P) are
+// contiguous: the arena's rows with the selected rows rewritten.
+extern "C" int launch_point_gn(const float* pos, long long s_pos,
+                               const int* last_optim, long long s_lo,
+                               const int* obs_kf, long long s_okf,
+                               const float* obs_f, long long s_of,
+                               const float* q_kw, long long s_q,
+                               const float* t_kw, long long s_t,
+                               const unsigned char* kf_valid, long long s_kv,
+                               const long long* slots, long long s_sl,
+                               const unsigned char* sel, long long s_se,
+                               const int* frame_id, long long s_fi, int B,
+                               int P, int O, int K, int S, int n_iter, int lm,
+                               float* pos_out, int* lo_out, void* stream) {
+  if (B <= 0) return 0;
+  if (P < 0 || O < 0 || K <= 0 || S < 0 || n_iter < 0)
+    return (int)cudaErrorInvalidValue;
+  point_gn_kernel<<<B, kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pos, s_pos, last_optim, s_lo, obs_kf, s_okf, obs_f, s_of, q_kw, s_q,
+      t_kw, s_t, kf_valid, s_kv, slots, s_sl, sel, s_se, frame_id, s_fi, P, O,
+      K, S, n_iter, lm, pos_out, lo_out);
   return (int)cudaGetLastError();
 }
 

@@ -11,18 +11,21 @@ version on the same inputs and returns the deviations and the failures.
 same for the batched forms (B frames, one launch per call), which must also
 equal the B single launches bit for bit.  `pose_inputs`,
 `projection_gap_px` and `compare_pose` hold `pose_gn_kernel` against
-`core/pose_opt.py::optimize_pose_plain` on the same inputs; `align_inputs`,
-`compare_align` and `plain_align_trace` hold `sparse_align_kernel` against
-the plain loop of `ops/sparse_align.py`; `camera_calls` and
-`camera_failures` hold the radtan camera's kernels against
-`PinholeCamera`'s plain versions.  `path_gate` runs every one of
+`core/pose_opt.py::optimize_pose_plain` on the same inputs;
+`point_inputs`, `point_operands` and `compare_points` hold
+`point_gn_kernel` against `core/point_opt.py::optimize_selected_plain`;
+`align_inputs`, `compare_align` and `plain_align_trace` hold
+`sparse_align_kernel` against the plain loop of `ops/sparse_align.py`;
+`camera_calls` and `camera_failures` hold the radtan camera's kernels
+against `PinholeCamera`'s plain versions.  `path_gate` runs every one of
 these checks at the tracking path's shapes, with each call's dispatch
 (ATen ops, device activities) and reads back; the card tests
 (`tests/test_torch_cuda.py`) and `chip_smoke.py`'s phase 3 both run it, and
 the card tests hold every kernel to these bounds at more shapes.
 `tools/patch_ab.py` and `chip_smoke.py`'s phase 11 take their inputs from
-here.  `pose_bound`, `align_bound`, `probe_bound` and `camera_bound` give
-the least time of the kernels `svo_bench/reference/bounds.py` leaves out.
+here.  `pose_bound`, `point_bound`, `align_bound`, `probe_bound` and
+`camera_bound` give the least time of the kernels
+`svo_bench/reference/bounds.py` leaves out.
 """
 
 from __future__ import annotations
@@ -483,6 +486,178 @@ def compare_pose(k, p, args, thresh: float):
         if bool(far.any()):
             failures.append(f"{int(far.sum())} inlier flips away from the "
                             "threshold")
+    return detail, failures
+
+
+# ---------------------------------------------------------------------------
+# structure optimisation: point_gn_kernel against optimize_selected_plain
+# ---------------------------------------------------------------------------
+
+# the path's shapes: SVOConfig()'s 8,192 landmarks of 8 observations, 16
+# keyframes, 20 selected, 5 iterations; the batched step's 11 sequences
+POINT_SHAPES = {"points": 8192, "obs": 8, "kfs": 16, "select": 20,
+                "n_iter": 5}
+POINT_BATCH = 11
+POINT_REL = 1e-2        # final costs, relative (an H100 read up to 3.2e-3)
+POINT_COST_ABS = 1e-10  # a cost's absolute rounding (unit plane, squared)
+POINT_COND = 1e8        # a system past this condition number is singular
+POINT_STAGE_OPS = 12    # the stage's ATen ops a call (selection + launch)
+
+
+def point_config(method: str = "gn", **kw):
+    """SVOConfig at the path's structure shapes (`POINT_SHAPES`)."""
+    from android_svo_tpu_torch.config import SVOConfig
+    base = dict(max_points=POINT_SHAPES["points"],
+                max_obs_per_point=POINT_SHAPES["obs"],
+                max_n_kfs=POINT_SHAPES["kfs"],
+                structureoptim_max_pts=POINT_SHAPES["select"],
+                structureoptim_n_iter=POINT_SHAPES["n_iter"],
+                structureoptim_method=method)
+    return SVOConfig(**{**base, **kw})
+
+
+def point_inputs(seed: int, cfg=None, live_share: float = 0.6,
+                 kf_live_share: float = 0.85, outliers: float = 0.05,
+                 noise: float = 0.0015, offset: float = 0.05,
+                 device="cuda"):
+    """One frame's structure problem at `cfg`'s arena sizes: keyframes
+    spread a few tenths of a unit about the origin (a share of slots not
+    live), landmarks 2-6 units ahead (a share of slots deleted), each seen
+    from 0 to O keyframes as noisy bearings (a share of them gross
+    outliers: the bearing mirrored through the camera), its stored
+    position `offset` off per axis, and last_optim stamps with ties.
+    Returns `optimize_structure`'s inputs but the config: (points, kfs,
+    frame_id)."""
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    cfg = cfg or point_config()
+    P, O, K = cfg.max_points, cfg.max_obs_per_point, cfg.max_n_kfs
+    g = torch.Generator().manual_seed(seed)
+    T_kw = SE3.exp(torch.randn(K, 6, generator=g)
+                   * torch.tensor([0.3, 0.3, 0.2, 0.05, 0.05, 0.05]))
+    p_true = (torch.randn(P, 3, generator=g) * torch.tensor([2.0, 1.5, 1.0])
+              + torch.tensor([0.0, 0.0, 4.0]))
+    n_obs = torch.randint(0, O + 1, (P,), generator=g)
+    obs_kf = torch.stack([torch.randperm(K, generator=g)[:O]
+                          for _ in range(P)]).to(torch.int32)
+    obs_kf = torch.where(torch.arange(O)[None, :] < n_obs[:, None], obs_kf,
+                         torch.full_like(obs_kf, -1))
+    xyz = SE3(q=T_kw.q[obs_kf.clamp(min=0).long()],
+              t=T_kw.t[obs_kf.clamp(min=0).long()]).apply(p_true[:, None, :])
+    out = torch.rand(P, O, generator=g) < outliers
+    xyz = torch.where(out[..., None], xyz * torch.tensor([1.0, 1.0, -1.0]),
+                      xyz)
+    f = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    f = f + torch.randn(P, O, 3, generator=g) * noise
+    f = torch.where((obs_kf >= 0)[..., None], f, torch.zeros_like(f))
+    live = torch.rand(P, generator=g) < live_share
+    pos = p_true + torch.randn(P, 3, generator=g) * offset
+    kf_live = torch.rand(K, generator=g) < kf_live_share
+    vo = st.init_state(cfg, 64, 48, device="cpu")
+    points = vo.points.replace(
+        pos=pos, ptype=torch.where(live, st.TYPE_CANDIDATE,
+                                 st.TYPE_DELETED).to(torch.int32),
+        last_optim=torch.randint(0, 40, (P,), generator=g,
+                                 dtype=torch.int32),
+        obs_kf=obs_kf, obs_f=f, obs_count=n_obs.to(torch.int32))
+    kfs = vo.kfs.replace(q_kw=T_kw.q, t_kw=T_kw.t, valid=kf_live)
+    move = (lambda a: a.replace(**{
+        k: getattr(a, k).to(device) for k in a.__dataclass_fields__}))
+    return (move(points), move(kfs),
+            torch.tensor(137, dtype=torch.int32, device=device))
+
+
+def point_operands(points, kfs, frame_id, cfg):
+    """The op `svo_torch::point_gn`'s tensor operands for these inputs,
+    the selection made as `optimize_structure` makes it."""
+    from android_svo_tpu_torch.core import point_opt
+    slots, sel = point_opt.select_points_for_optim(
+        points.last_optim, points.valid & (points.obs_count >= 2),
+        cfg.structureoptim_max_pts)
+    return (points.pos, points.last_optim, points.obs_kf, points.obs_f,
+            kfs.q_kw, kfs.t_kw, kfs.valid, slots, sel, frame_id)
+
+
+def compare_points(args, n_iter: int, lm: bool):
+    """point_gn_kernel against the plain version in float32 and in float64
+    (`optimize_selected_plain`, the operands cast up) on the same operands
+    (`point_operands`), by the cost each selected landmark ends at, in
+    float64 on its live observations: the quantity the loop lowers.
+    Float32 rounding alone sets where the plain version ends (a step kept
+    or refused where its two costs lie a rounding apart, LM's damping then
+    following that decision; a weakly held depth moved along its ray), so:
+      - each landmark's cost may not exceed its starting cost (every step
+        the kernel keeps lowered it);
+      - where the landmark's 3x3 system at the start is regular in float32
+        (condition number at most `POINT_COND`), its cost lies between the
+        plain version's in float32 and in float64, widened by `POINT_REL`;
+        a singular system (one usable observation, or nearly parallel
+        rays) takes steps along its null direction that rounding alone
+        sets, on each side its own way;
+      - every other row, and all of `last_optim`, equal.
+    Each cost comparison also admits `POINT_COST_ABS`.  Returns (the
+    deviations, the failures)."""
+    from android_svo_tpu_torch.core import point_opt
+    from android_svo_tpu_torch.geometry.se3 import SE3
+    from android_svo_tpu_torch.ops import point_gn
+    plain = point_opt.optimize_selected_plain
+    wide = [a.double() if a.is_floating_point() else a for a in args]
+    ref, ref_lo = plain(*wide, n_iter, lm)
+    kern, kern_lo = point_gn.point_gn(*args, n_iter, lm)
+    pos, _, obs_kf, obs_f, q_kw, t_kw, kf_valid, slots, sel, _ = wide
+    rows = slots[sel]
+    okf = obs_kf[rows]
+    ks = okf.clamp(min=0).long()
+    live = (okf >= 0) & kf_valid[ks]
+    T = SE3(q=q_kw[ks], t=t_kw[ks])
+
+    def cost(p):
+        return point_opt.optimize_points(p[rows].double(), T.q, T.t,
+                                         obs_f[rows], live, sel[sel], 0)[1]
+
+    # the condition number of each landmark's system at the start
+    xyz = T.apply(pos[rows][:, None, :])
+    ok = live & (xyz[..., 2] > 1e-2)
+    z = torch.where(ok, xyz[..., 2], 1.0)
+    zero = torch.zeros_like(z)
+    dpi = torch.stack([torch.stack([1 / z, zero, -xyz[..., 0] / z**2], -1),
+                       torch.stack([zero, 1 / z, -xyz[..., 1] / z**2], -1)],
+                      -2)
+    J = (dpi @ T.rotation_matrix()) * ok[..., None, None]
+    eig = torch.linalg.eigvalsh(torch.einsum("soij,soik->sjk", J, J))
+    regular = eig[:, -1] <= POINT_COND * eig[:, 0]
+
+    c0, c_ref, c32, ck = (cost(pos), cost(ref),
+                          cost(plain(*args, n_iter, lm)[0]), cost(kern))
+    hi, lo = torch.maximum(c_ref, c32), torch.minimum(c_ref, c32)
+    above = (ck - hi) / (hi + POINT_COST_ABS)
+    below = (lo - ck) / (lo + POINT_COST_ABS)
+    risen = (ck - c0) / (c0 + POINT_COST_ABS)
+
+    def worst(x):
+        return float(x.max()) if x.numel() else 0.0
+
+    detail = {"landmarks": int(rows.numel()),
+              "singular": int((~regular).sum()),
+              "above": worst(above[regular]), "below": worst(below[regular]),
+              "risen": worst(risen),
+              "plain_gap": worst((c32 - c_ref).abs() / (c_ref
+                                                        + POINT_COST_ABS))}
+    failures = []
+    for what, x, where in (("above the plain versions' by", above, regular),
+                           ("below the plain versions' by", below, regular),
+                           ("above its start by", risen,
+                            torch.ones_like(regular))):
+        far = ~(x <= POINT_REL) & where
+        if bool(far.any()):
+            failures.append(f"final costs of landmarks {rows[far].tolist()} "
+                            f"{what} {x[far].tolist()}")
+    rest = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    rest[rows] = False
+    if not torch.equal(kern[rest], args[0][rest]):
+        failures.append("rows not selected differ")
+    if not torch.equal(kern_lo, ref_lo):
+        failures.append("last_optim differs")
     return detail, failures
 
 
@@ -1048,6 +1223,70 @@ def pose_failures(device="cuda") -> list:
     return failures
 
 
+def point_failures(device="cuda") -> list:
+    """point_gn_kernel against the plain version (`compare_points`) at the
+    path's shapes (`POINT_SHAPES`), GN and LM: one launch a call, the stage
+    (`optimize_structure`: the selection and the launch) at most
+    `POINT_STAGE_OPS` ATen ops and the op one device activity, nothing read
+    back; a torch.func.vmap of the stage over `POINT_BATCH` sequences is
+    one launch, reads nothing back, and gives each sequence its single
+    launch bit for bit."""
+    from android_svo_tpu_torch.core import point_opt
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.ops import point_gn as pg
+    kernel = "point_gn_kernel"
+    n_iter = POINT_SHAPES["n_iter"]
+    failures = []
+    for method in ("gn", "lm"):
+        cfg = point_config(method)
+        inputs = point_inputs(1, cfg, device=device)
+        args = point_operands(*inputs, cfg)
+        failures += [f"{method}: {f}" for f in compare_points(
+            args, n_iter, method == "lm")[1]]
+        pg.reset_launch_counts()
+        stage = (lambda i=inputs, c=cfg: point_opt.optimize_structure(*i, c))
+        stage()
+        torch.cuda.synchronize()
+        if pg.LAUNCHES[kernel] != 1:
+            failures.append(f"{method}: {pg.LAUNCHES[kernel]} launches for "
+                            "a stage")
+        n_ops, _ = dispatch_counts(stage)
+        if n_ops > POINT_STAGE_OPS:
+            failures.append(f"{method}: the stage dispatches {n_ops} ATen "
+                            "ops")
+        failures += dispatch_failures({f"{method} op": (
+            lambda a=args, lm=method == "lm": pg.point_gn(*a, n_iter, lm),
+            2)})
+        failures += [f"{method} reads {r}" for r in host_reads(stage)]
+
+    cfg = point_config()
+    scenes = [point_inputs(10 + s, cfg, live_share=0.3 + 0.05 * s,
+                           outliers=0.02 * (s % 3), device=device)
+              for s in range(POINT_BATCH)]
+    stacked = [st.stack_states([sc[i] for sc in scenes])
+               for i in range(3)]
+
+    def batched():
+        return torch.func.vmap(lambda p, k, f: point_opt.optimize_structure(
+            p, k, f, cfg))(*stacked)
+
+    pg.reset_launch_counts()
+    out = batched()
+    torch.cuda.synchronize()
+    if pg.LAUNCHES[kernel] != 1:
+        failures.append(f"batched: {pg.LAUNCHES[kernel]} launches")
+    for b, sc in enumerate(scenes):
+        one = point_opt.optimize_structure(*sc, cfg)
+        if not (same_bits(out.pos[b], one.pos)
+                and same_bits(out.last_optim[b], one.last_optim)):
+            failures.append(f"batched, sequence {b}: differs from its "
+                            "single launch")
+        failures += [f"batched, sequence {b}: {f}" for f in compare_points(
+            point_operands(*sc, cfg), n_iter, False)[1]]
+    failures += [f"batched reads {r}" for r in host_reads(batched)]
+    return failures
+
+
 def align_failures(device="cuda") -> list:
     """sparse_align_kernel against the plain loop (`compare_align`) at the
     cells' cameras and rows (radtan at 752x480, 912; no distortion at
@@ -1135,7 +1374,8 @@ def path_gate(device="cuda") -> dict:
     forms and each form's dispatch (`dispatch_cases`) at `PATH_SHAPES`;
     no ICLK layout spilling at their rows; `run_batched_gate` and
     `batched_extra_failures` at `BATCHED_PATH_SHAPES`; pose GN
-    (`pose_failures`), sparse alignment (`align_failures`), the gather
+    (`pose_failures`), structure GN (`point_failures`), sparse alignment
+    (`align_failures`), the gather
     probe (`probe_failures`) and the radtan camera
     (`camera_failures`).  Returns check -> its failures (empty where it
     held).  The card tests and `chip_smoke.py` both run it; a new
@@ -1164,6 +1404,7 @@ def path_gate(device="cuda") -> dict:
             for r in [pk.iclk_residency(4, window, b * n)]
             if r["local_bytes"]]
     out["pose_gn_kernel"] = pose_failures(device)
+    out["point_gn_kernel"] = point_failures(device)
     out["sparse_align_kernel"] = align_failures(device)
     out["probe_patches_kernel"] = probe_failures(device)
     out["camera_kernels"] = camera_failures(device)
@@ -1203,6 +1444,23 @@ def pose_bound(n: int, n_iter: int, batch: int = 1) -> tuple:
     latency of its serial iterations."""
     return least_ms(batch * (n * 30 + 72 + 144),
                     batch * n * (242 * n_iter + 235))
+
+
+def point_bound(n_points: int, n_obs: int, n_iter: int, n_select: int,
+                batch: int = 1) -> tuple:
+    """Least time of point_gn_kernel on `batch` frames (`least_ms`): the
+    bytes it must move (the arena's pos and last_optim read and the new
+    ones written, 32 bytes a row; a selected landmark's slot, flag and row,
+    21 bytes, and each of its observations, 16 bytes and its keyframe's 29;
+    4 for the frame's stamp), or its fp32 operations: an observation costs
+    ~30 in the cost (the pose applied, the projection, the squared
+    residual) and ~75 more in the normal equations (R from q, the 2x3
+    Jacobian, 6 + 3 products summed), a landmark's solve and step ~40, so
+    ~(135 n_obs + 40) an iteration and ~30 n_obs at the start.  The kernel
+    is bound by neither: by the latency of its serial iterations."""
+    bytes_moved = (n_points * 32 + n_select * (21 + n_obs * (16 + 29)) + 4)
+    flops = n_select * (n_iter * (135 * n_obs + 40) + 30 * n_obs)
+    return least_ms(batch * bytes_moved, batch * flops)
 
 
 def align_bound(n: int, n_iter: int, batch: int = 1, n_levels: int = 3,

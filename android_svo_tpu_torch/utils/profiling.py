@@ -43,7 +43,9 @@ number).  The spans the program opens:
 (every read through `host_read`), `align_iters` (the plain sparse
 alignment loop's Gauss-Newton iterations), `align_launches` (launches of
 `sparse_align_kernel`, which runs the loop on the card: one a frame or a
-batched step), `align1d_iters` (the 1D alignment's iterations, `n_iter`
+batched step), `point_gn_launches` (launches of `point_gn_kernel`, the
+`point_optimizer` stage on the card: one a frame or a batched step),
+`align1d_iters` (the 1D alignment's iterations, `n_iter`
 a call) and `local_ba_iters` (local BA's GN iterations, `loba_n_iter` a
 call); `unit_counts` keeps each unit's share.  Counters
 count only while a monitor is installed, and the monitor's own reads are

@@ -23,7 +23,8 @@ every phase passed):
                768 rows on 640x480 and on EuRoC cam0's 752x480, and batched
                at 11 x 768 on 752x480 (one launch a batch, each frame bit
                for bit its single launch); no ICLK layout spilling at those
-               rows; pose_gn_kernel at 912 and 768 rows and
+               rows; pose_gn_kernel at 912 and 768 rows, point_gn_kernel
+               at 20 of 8,192 landmarks of 8 observations, and
                sparse_align_kernel on the radtan and pinhole cameras, GN and
                LM, and each batched on 11 frames, against their plain
                versions, reading nothing back; the gather probe against its
@@ -117,14 +118,14 @@ every phase passed):
 Each path (4, 5, 6, 7, 8a and 8b with their plain runs, 9, 10b and its
 plain run, 11) runs with the launch counts set to 0 just before it and read
 just after; on a tracking path those of the patch kernels, of
-pose_gn_kernel and sparse_align_kernel and of the camera kernels, all 0 on
-each plain run.  The tracking paths (4, 6, 7, 8a, 8b, 9, 10b) launch every
-patch kernel but dump_windows_kernel, which only the public dump_windows
-runs (8b also not align_iclk_kernel); there its count must stay 0.  They
-launch pose_gn_kernel and sparse_align_kernel once a tracked frame (4, 6,
-8a, 8b, 9) and once a batched step (10b; 7, which relocalizes, at least
-once).  The radtan paths (9, 10b) launch the camera kernels 7 + 15 times a
-tracked frame or batched step without a keyframe, and 10b as many a
+pose_gn_kernel, point_gn_kernel and sparse_align_kernel and of the camera
+kernels, all 0 on each plain run.  The tracking paths (4, 6, 7, 8a, 8b,
+9, 10b) launch every patch kernel but dump_windows_kernel, which only the
+public dump_windows runs (8b also not align_iclk_kernel); there its count
+must stay 0.  They launch pose_gn_kernel, point_gn_kernel and
+sparse_align_kernel once a tracked frame (4, 6, 8a, 8b, 9) and once a
+batched step (10b; 7, which relocalizes, at least once).  The radtan
+paths (9, 10b) launch the camera kernels 7 + 15 times a tracked frame or batched step without a keyframe, and 10b as many a
 batched step as one sequence's step (where its keyframe decision is the
 batch's); the pinhole paths (4-8) never.
 Prints one JSON line of results per path and ends with one JSON line
@@ -147,6 +148,7 @@ import numpy as np
 # path launches it
 DUMP = "dump_windows_kernel"
 POSE = "pose_gn_kernel"
+POINT = "point_gn_kernel"
 ALIGN = "sparse_align_kernel"
 # the radtan camera's kernels: only a camera with distortion launches them
 # (phases 9 and 10b), 7 cam2world and 15 world2cam / world2cam_uv calls a
@@ -201,25 +203,31 @@ def require_path_launches(launches, what, absent=(), radtan=False):
 
 def reset_launches():
     """Set the tracking path's launch counts to 0: the patch kernels',
-    pose_gn_kernel's, sparse_align_kernel's and the camera kernels'."""
+    pose_gn_kernel's, point_gn_kernel's, sparse_align_kernel's and the
+    camera kernels'."""
     from android_svo_tpu_torch.ops import camera_kernels as ck
     from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import point_gn as qg
     from android_svo_tpu_torch.ops import pose_gn as pg
     from android_svo_tpu_torch.ops import sparse_align_gn as sg
     pk.reset_launch_counts()
     pg.reset_launch_counts()
+    qg.reset_launch_counts()
     sg.reset_launch_counts()
     ck.reset_launch_counts()
 
 
 def path_launches() -> dict:
     """The tracking path's launch counts: the patch kernels',
-    pose_gn_kernel's, sparse_align_kernel's and the camera kernels'."""
+    pose_gn_kernel's, point_gn_kernel's, sparse_align_kernel's and the
+    camera kernels'."""
     from android_svo_tpu_torch.ops import camera_kernels as ck
     from android_svo_tpu_torch.ops import patch_kernels as pk
+    from android_svo_tpu_torch.ops import point_gn as qg
     from android_svo_tpu_torch.ops import pose_gn as pg
     from android_svo_tpu_torch.ops import sparse_align_gn as sg
-    return {**pk.LAUNCHES, **pg.LAUNCHES, **sg.LAUNCHES, **ck.LAUNCHES}
+    return {**pk.LAUNCHES, **pg.LAUNCHES, **qg.LAUNCHES, **sg.LAUNCHES,
+            **ck.LAUNCHES}
 
 
 def require_camera_per_unit(per_unit, what):
@@ -233,9 +241,9 @@ def require_camera_per_unit(per_unit, what):
 
 
 def require_pose_per_frame(launches, n_units, what, unit="tracked frame"):
-    """One pose_gn_kernel and one sparse_align_kernel launch per tracked
-    frame (or batched step)."""
-    for name in (POSE, ALIGN):
+    """One pose_gn_kernel, one point_gn_kernel and one sparse_align_kernel
+    launch per tracked frame (or batched step)."""
+    for name in (POSE, POINT, ALIGN):
         require(launches[name] == n_units, f"{name} launched "
                 f"{launches[name]} times on the {what} path for {n_units} "
                 f"{unit}s")

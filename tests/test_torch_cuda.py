@@ -1626,6 +1626,215 @@ def test_pose_kernel_once_per_frame_and_per_step(card):
     assert pose_gn.LAUNCHES["pose_gn_kernel"] == 1
 
 
+# ---------------------------------------------------------------------------
+# structure optimisation in one launch (point_gn_kernel)
+# ---------------------------------------------------------------------------
+
+POINT_SCENES = {"typical": {}, "all_live": {"live_share": 1.0},
+                "few_live": {"live_share": 0.002},
+                "none_live": {"live_share": 0.0},
+                "dead_keyframes": {"kf_live_share": 0.3},
+                "outliers": {"outliers": 0.3},
+                "far_off": {"offset": 0.3}}
+# (structureoptim_max_pts, max_obs_per_point): the path's, a larger
+# selection than a block's 256 threads, other observation counts
+POINT_SELECTIONS = {"20x8": (20, 8), "300x8": (300, 8), "64x4": (64, 4),
+                "20x12": (20, 12)}
+
+
+@pytest.mark.parametrize("scene", list(POINT_SCENES))
+@pytest.mark.parametrize("method", ["gn", "lm"])
+def test_point_kernel_matches_plain(card, scene, method):
+    """point_gn_kernel against the plain version (ATen on the card) at the
+    path's shapes (8,192 landmarks of 8 observations, 16 keyframes, 20
+    selected, 5 iterations), two seeds each, by
+    `silicon_gate.compare_points`: each landmark's final cost (float64)
+    never above its start, and for a regular start system between the
+    plain version's in float32 and in float64, widened by 1e-2; the rest
+    of the arena and every stamp equal."""
+    from android_svo_tpu_torch.ops import point_gn
+    cfg = silicon_gate.point_config(method)
+    for seed in (1, 2):
+        args = silicon_gate.point_operands(*silicon_gate.point_inputs(
+            seed, cfg, device=card, **POINT_SCENES[scene]), cfg)
+        point_gn.reset_launch_counts()
+        detail, failures = silicon_gate.compare_points(
+            args, cfg.structureoptim_n_iter, method == "lm")
+        torch.cuda.synchronize()
+        assert point_gn.LAUNCHES["point_gn_kernel"] == 1
+        assert not failures, (detail, failures)
+        if scene == "none_live":
+            assert detail["landmarks"] == 0
+
+
+@pytest.mark.parametrize("shape", list(POINT_SELECTIONS))
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
+def test_point_kernel_matches_plain_at_other_shapes(card, shape, n_iter):
+    """The same check with other selections, observation counts and
+    iteration counts (GN and LM), one seed each."""
+    n_sel, n_obs = POINT_SELECTIONS[shape]
+    for method in ("gn", "lm"):
+        cfg = silicon_gate.point_config(
+            method, structureoptim_max_pts=n_sel, max_obs_per_point=n_obs,
+            structureoptim_n_iter=n_iter)
+        args = silicon_gate.point_operands(*silicon_gate.point_inputs(
+            3, cfg, device=card), cfg)
+        detail, failures = silicon_gate.compare_points(args, n_iter,
+                                                       method == "lm")
+        assert not failures, (method, detail, failures)
+        assert detail["landmarks"] == n_sel
+
+
+def test_point_kernel_batched_matches_single_launches(card):
+    """torch.func.vmap over the stage on 11 sequences is ONE launch, and
+    each sequence's arena equals its own single launch bit for bit: each
+    landmark sums in an order that does not depend on the batch.  Each
+    sequence is within `compare_points` of the plain version, GN and LM."""
+    from android_svo_tpu_torch.core import point_opt
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.ops import point_gn
+    for method in ("gn", "lm"):
+        cfg = silicon_gate.point_config(method)
+        scenes = [silicon_gate.point_inputs(
+            10 + s, cfg, live_share=0.3 + 0.05 * s,
+            outliers=0.02 * (s % 3), device=card) for s in range(11)]
+        stacked = [st.stack_states([sc[i] for sc in scenes])
+                   for i in range(3)]
+        point_gn.reset_launch_counts()
+        out = torch.func.vmap(lambda p, k, f: point_opt.optimize_structure(
+            p, k, f, cfg))(*stacked)
+        torch.cuda.synchronize()
+        assert point_gn.LAUNCHES["point_gn_kernel"] == 1
+        for b, sc in enumerate(scenes):
+            one = point_opt.optimize_structure(*sc, cfg)
+            assert torch.equal(out.pos[b], one.pos), b
+            assert torch.equal(out.last_optim[b], one.last_optim), b
+            _, failures = silicon_gate.compare_points(
+                silicon_gate.point_operands(*sc, cfg),
+                cfg.structureoptim_n_iter, method == "lm")
+            assert not failures, (method, b, failures)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_point_kernel_launches_once_and_reads_nothing_back(card, batched):
+    """One stage (a frame, or a vmapped batch of 11) is exactly one launch
+    of point_gn_kernel and one `point_gn_launches`; a frame's stage (the
+    selection and the launch) is at most 12 ATen ops, and the op alone two
+    output allocations and one device activity; nothing in it reads the
+    device back.  With use_pallas off the plain version runs on the card
+    and launches nothing."""
+    from android_svo_tpu_torch.core import point_opt
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.ops import point_gn
+    from android_svo_tpu_torch.utils import profiling
+    cfg = silicon_gate.point_config()
+    if batched:
+        scenes = [silicon_gate.point_inputs(30 + s, cfg, device=card)
+                  for s in range(11)]
+        stacked = [st.stack_states([sc[i] for sc in scenes])
+                   for i in range(3)]
+
+        def call(c):
+            return torch.func.vmap(lambda p, k, f: point_opt.
+                                   optimize_structure(p, k, f, c))(*stacked)
+    else:
+        inputs = silicon_gate.point_inputs(30, cfg, device=card)
+
+        def call(c):
+            return point_opt.optimize_structure(*inputs, c)
+    call(cfg)                                   # warm
+    torch.cuda.synchronize()
+    n_ops, _ = silicon_gate.dispatch_counts(lambda: call(cfg))
+    assert batched or n_ops <= silicon_gate.POINT_STAGE_OPS, n_ops
+    if not batched:
+        args = silicon_gate.point_operands(*inputs, cfg)
+        n_ops, n_dev = silicon_gate.dispatch_counts(
+            lambda: point_gn.point_gn(*args, 5, False))
+        assert (n_ops, n_dev) == (2, 1)
+    point_gn.reset_launch_counts()
+    assert not silicon_gate.host_reads(lambda: call(cfg))
+    assert point_gn.LAUNCHES["point_gn_kernel"] == 1
+    mon = profiling.install()
+    try:
+        call(cfg)
+    finally:
+        profiling.uninstall()
+    assert mon.counters["point_gn_launches"] == 1
+    call(cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    assert point_gn.LAUNCHES["point_gn_kernel"] == 2
+
+
+def test_point_kernel_refuses_other_types(card):
+    """On the card the wrapper converts nothing: float64 positions, int64
+    keyframe slots, int32 selected slots, a strided bearing array or a
+    selection on the CPU raise before any launch."""
+    from android_svo_tpu_torch.ops import point_gn
+    cfg = silicon_gate.point_config()
+    args = list(silicon_gate.point_operands(
+        *silicon_gate.point_inputs(40, cfg, device=card), cfg))
+
+    def with_(i, x):
+        return (*args[:i], x, *args[i + 1:], 5, False)
+
+    point_gn.reset_launch_counts()
+    with pytest.raises(TypeError):
+        point_gn.point_gn(*with_(0, args[0].double()))
+    with pytest.raises(TypeError):
+        point_gn.point_gn(*with_(2, args[2].long()))
+    with pytest.raises(TypeError):
+        point_gn.point_gn(*with_(7, args[7].int()))
+    with pytest.raises(ValueError):
+        point_gn.point_gn(*with_(3, torch.cat([args[3], args[3]], -1)
+                                 [..., ::2]))
+    with pytest.raises(ValueError):
+        point_gn.point_gn(*with_(8, args[8].cpu()))
+    with pytest.raises(ValueError):
+        point_gn.point_gn(*with_(1, args[1][:-1]))
+    assert point_gn.LAUNCHES["point_gn_kernel"] == 0
+
+
+def test_point_kernel_once_per_frame_and_per_step(card):
+    """On the tracking path: one point_gn_kernel launch per tracked frame
+    of the handler, keyframes included, and one per batched step of 11
+    sequences; the stage's arena there within `compare_points` of the
+    plain version on the same state."""
+    from android_svo_tpu_torch.config import SVOConfig
+    from android_svo_tpu_torch.core import frame_handler as fh
+    from android_svo_tpu_torch.core import pipeline
+    from android_svo_tpu_torch.core import state as st
+    from android_svo_tpu_torch.data import synthetic
+    from android_svo_tpu_torch.ops import point_gn
+    from android_svo_tpu_torch.parallel.multi_seq import make_batched_track
+    cam = synthetic.default_camera(320, 240)
+    tex = synthetic.make_texture(torch.Generator().manual_seed(3), 1024)
+    imgs = [synthetic.render(tex, cam, synthetic.lookdown_pose(
+        0.05 * i, 0.015 * i, -3.0, (0.45 + 0.002 * i, -0.002 * i,
+                                    0.004 * i))) for i in range(11)]
+    cfg = SVOConfig(init_min_disparity=20.0, loba_n_iter=0)
+    handler = fh.FrameHandler(cam, cfg)
+    for img in (imgs[0], imgs[4]):
+        handler.add_image(img)
+    assert handler.stage == fh.STAGE_DEFAULT_FRAME
+    point_gn.reset_launch_counts()
+    results = [handler.add_image(img).result for img in imgs[5:10]]
+    torch.cuda.synchronize()
+    assert pipeline.RES_FAILURE not in results
+    assert point_gn.LAUNCHES["point_gn_kernel"] == len(results)
+    vo = handler.vo
+    args = silicon_gate.point_operands(vo.points, vo.kfs, vo.frame_id, cfg)
+    assert int(args[8].sum()) > 0
+    detail, failures = silicon_gate.compare_points(
+        args, cfg.structureoptim_n_iter, False)
+    assert not failures, (detail, failures)
+    track = make_batched_track(cfg, handler.cam, handler.dims)
+    vo_b = st.stack_states([handler.vo] * 11)
+    point_gn.reset_launch_counts()
+    track(vo_b, torch.stack([imgs[10]] * 11))
+    torch.cuda.synchronize()
+    assert point_gn.LAUNCHES["point_gn_kernel"] == 1
+
+
 # The 1D alignment on the edgelet cell's timed path (`tum_fr3_edgelet.
 # replay`) against the benchmark's float64 reference (`svo_bench/
 # reference/align1d.py`), every `align1d_stack` call of the window's first
